@@ -1,0 +1,184 @@
+"""Core linear algebra for class models (port of the main-path subset of
+``ocm_tpu/ops/linalg.py``).
+
+Every function takes optional leading batch (class) dimensions where the
+JAX package vmaps.  Covariance-scale products run in full f32 inside
+``full_f32_matmul`` (the counterpart of ``jax.default_matmul_precision(
+"highest")``): reduced-precision (TF32) passes perturb the leading
+eigenvalue enough to collapse the deflated residual moments, and with them
+the Jackson-Mudholkar Q limits, to 0.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
+
+import torch
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run f32 matrix products in full f32 (no TF32) and restore the
+    previous setting on exit."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+class PCAFit(NamedTuple):
+    """Full-rank PCA decomposition of one (or a batch of) data matrices.
+
+    mean:        (..., L)    column means
+    components:  (..., r, L) principal axes (rows), sklearn sign convention
+    scores:      (..., N, r) projections of the centered training data
+    eigenvalues: (..., r)    explained variances S^2/(N-1)
+    """
+
+    mean: torch.Tensor
+    components: torch.Tensor
+    scores: torch.Tensor
+    eigenvalues: torch.Tensor
+
+
+def _nonzero_sign(v):
+    s = torch.sign(v)
+    return torch.where(s == 0, 1.0, s)
+
+
+def svd_flip_signs(u, vt):
+    """sklearn's deterministic SVD sign convention: for each component, the
+    entry of the corresponding row of Vt with the largest absolute value is
+    made positive."""
+    idx = vt.abs().argmax(-1, keepdim=True)
+    signs = _nonzero_sign(torch.gather(vt, -1, idx))[..., 0]
+    return u * signs[..., None, :], vt * signs[..., :, None]
+
+
+def pca_fit(x, dtype=None) -> PCAFit:
+    """Full-rank PCA via one SVD of the centered data (sklearn
+    ``PCA(svd_solver='full')`` equivalent, signs included)."""
+    if dtype is not None:
+        x = x.to(dtype)
+    mean = x.mean(-2)
+    xc = x - mean[..., None, :]
+    u, s, vt = torch.linalg.svd(xc, full_matrices=False)
+    u, vt = svd_flip_signs(u, vt)
+    eigenvalues = (s * s) / (x.shape[-2] - 1)
+    return PCAFit(mean=mean, components=vt, scores=u * s[..., None, :],
+                  eigenvalues=eigenvalues)
+
+
+def sign_columns(v):
+    """Each column's max-abs entry made positive (``svd_flip`` on loadings)."""
+    idx = v.abs().argmax(-2, keepdim=True)
+    return v * _nonzero_sign(torch.gather(v, -2, idx))
+
+
+def eigh_desc_signed(c):
+    """Eigendecomposition of a symmetric PSD matrix, descending, clipped at
+    zero, with sklearn's sign convention."""
+    eigval, eigvec = torch.linalg.eigh(c)
+    return eigval.flip(-1).clamp_min(0.0), sign_columns(eigvec.flip(-1))
+
+
+def pinv_psd(a, rcond: float = 1e-15):
+    """Moore-Penrose pseudo-inverse of a symmetric PSD matrix via eigh."""
+    w, v = torch.linalg.eigh(a)
+    cutoff = rcond * w.abs().amax(-1, keepdim=True)
+    w_inv = torch.where(w > cutoff, 1.0 / w, 0.0)
+    return (v * w_inv[..., None, :]) @ v.mT
+
+
+def cov(x, rowvar: bool = False):
+    """np.cov(ddof=1) equivalent over the last two axes."""
+    if rowvar:
+        x = x.mT
+    xc = x - x.mean(-2, keepdim=True)
+    return (xc.mT @ xc) / (x.shape[-2] - 1)
+
+
+def sym_orthonormalize(y, eps: float = 1e-7):
+    """Loewdin (symmetric) orthonormalization of the columns of ``y``:
+    GEMMs plus an eigendecomposition of the small (s, s) Gram matrix.
+    Directions below ``eps * max`` are damped instead of amplified."""
+    with full_f32_matmul():
+        g = y.mT @ y
+        w, v = torch.linalg.eigh(g)
+        w = torch.maximum(w, eps * w.amax(-1, keepdim=True))
+        return y @ ((v * torch.rsqrt(w)[..., None, :]) @ v.mT)
+
+
+def default_omega(length: int, n_vectors: int, dtype, device, seed: int = 7):
+    """The randomized subspace iteration's default (length, n_vectors) test
+    matrix: standard normals from a ``torch.Generator`` seeded ``seed`` on
+    ``device``.  (The JAX package draws from ``PRNGKey(seed)``, which torch
+    cannot replay; pass its draw as ``omega`` to reproduce it.)"""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((length, n_vectors), generator=gen, dtype=dtype,
+                       device=device)
+
+
+def pca_topk_cov(c, n_vectors: int, iters: int = 4, seed: int = 7,
+                 omega=None):
+    """Top-``n_vectors`` eigenpairs of a symmetric PSD matrix (or a batch),
+    GEMM-only: randomized subspace iteration with Loewdin
+    orthonormalization and Rayleigh-Ritz extraction.
+
+    ``omega`` (L, n_vectors), or batched like ``c``, is the test matrix;
+    by default ``default_omega`` on ``c``'s device, shared by every batch
+    entry as the JAX package's vmap shares its key.  Within a degenerate
+    eigenvalue cluster the basis is an arbitrary rotation, as for any
+    dense solver.
+
+    Returns ``(eigenvalues (..., s), eigvecs (..., L, s))`` in descending
+    order with the sklearn sign convention applied.
+    """
+    if omega is None:
+        omega = default_omega(c.shape[-1], n_vectors, c.dtype, c.device, seed)
+    omega = omega.to(dtype=c.dtype, device=c.device)
+    with full_f32_matmul():
+        q = sym_orthonormalize(c @ omega)
+        for _ in range(iters):
+            q = sym_orthonormalize(c @ q)
+        # double Loewdin at Rayleigh-Ritz only: the extraction basis must
+        # be orthonormal even when the subspace Gram is ill-conditioned
+        q = sym_orthonormalize(q)
+        b = q.mT @ (c @ q)
+        w, v = torch.linalg.eigh(0.5 * (b + b.mT))
+        w = w.flip(-1).clamp_min(0.0)
+        vecs = q @ v.flip(-1)
+    return w, sign_columns(vecs)
+
+
+def deflated_thetas(c, eigenvalues, eigvecs, n_components):
+    """Residual eigenvalue moments theta_1..3 beyond ``n_components`` from
+    the deflated covariance ``C - V_k diag(lam_k) V_k^T`` (deflate first,
+    then take traces: the naive ``tr(C^m) - sum(lam_k^m)`` cancels in f32).
+    """
+    keep = torch.arange(eigenvalues.shape[-1],
+                        device=eigenvalues.device) < n_components
+    lam = torch.where(keep, eigenvalues.clamp_min(0.0), 0.0)
+    with full_f32_matmul():
+        v = eigvecs * torch.sqrt(lam)[..., None, :]
+        c_res = c - v @ v.mT
+        th1 = torch.diagonal(c_res, dim1=-2, dim2=-1).sum(-1).clamp_min(0.0)
+        th2 = (c_res * c_res).sum((-2, -1)).clamp_min(0.0)
+        th3 = (c_res * (c_res @ c_res)).sum((-2, -1)).clamp_min(0.0)
+    return th1, th2, th3
+
+
+def t2_q_scores(x, mean, components, invcovT):
+    """Hotelling T^2 and Q residual for rows of ``x`` against one PCA model.
+
+    ``||Xc - T P||^2 = ||Xc||^2 - ||T||^2`` for orthonormal loadings, so
+    scoring needs one product and row reductions.  Returns ``(t2, q, t)``.
+    """
+    xc = x - mean[..., None, :]
+    t = xc @ components.mT
+    q = ((xc * xc).sum(-1) - (t * t).sum(-1)).clamp_min(0.0)
+    t2 = ((t @ invcovT) * t).sum(-1)
+    return t2, q, t
