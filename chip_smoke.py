@@ -2,23 +2,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path at the benchmark's full width -- a batched
-3-class SIMCA fit (3 x 700 x 500, k = 10, randomized solver), then fused
-multi-class T^2/Q scoring of 98,304 spectra and the accept decision --
-and holds the hand-written CUDA scoring kernel against its plain PyTorch
-twin.  Phases, each of which exits non-zero on failure:
+Drives the port's two paths at full width and holds every hand-written
+CUDA kernel against its plain PyTorch twin:
+
+- SIMCA (first slice): a batched 3-class fit (3 x 700 x 500, k = 10,
+  randomized solver), fused multi-class T^2/Q scoring of 98,304 spectra
+  (kernel K1) and the accept decision;
+- the VAE (second slice): ``train_vae`` of the entry model
+  (``ConvVAE1D(501, 16)``, 3 conv blocks, 32 filters) on 640 spectra for
+  20 epochs at batch 64 (``bench_all.py``'s training workload), through
+  kernels K2/K3 (BatchNorm + activation, forward/backward) and K4
+  (reparameterize + KL).
+
+Phases, each of which exits non-zero on failure:
 
 1. device and numerics: card name and power limit, TF32 off;
-2. build: the kernel library, compiled with nvcc for sm_90a at first use;
-3. kernel vs plain twin on the card in f32: at the bench shapes, at a
-   ragged single-class shape, and at two shapes that take the kernel's
-   other paths (class groups, chunks of L, k > 32, L not a multiple of 4);
-4. main path: launches counted, limits finite and positive, the card's f32
-   fit against the port's own f64 CPU fit of the same data;
-5. timings with CUDA events (median after warm-up) beside the kernel's
-   bound.
+2. build: the kernel library (one nvcc per source, in parallel, sm_90a),
+   and every kernel's registers, shared memory and spills;
+3. K1 vs its plain twin at the bench shapes and three other shapes;
+4. SIMCA main path: launches counted, limits finite and positive, the
+   card's f32 fit against the port's own f64 CPU fit of the same data;
+5. SIMCA timings with CUDA events (median after warm-up);
+6. K2/K3 vs their twins at the six BatchNorm shapes of the train step
+   (plus GELU and no activation), K4 at (64, 16) and (300, 5), and K6's
+   gradients against autograd through the plain twin;
+7. VAE main path: launches counted (exactly 1200 K2, 1200 K3, 220 K4),
+   finite and falling losses, one train step on the card in f32 against
+   the port's CPU f64, and the entry model's forward and cosine loss;
+8. VAE timings: one train step, the 20-epoch run, and each kernel beside
+   its bound, its twin and the nearest PyTorch call.
 
-Prints a JSON line with the kernel's record, the card's ``nvidia-smi``
+Prints a JSON line with every kernel's record, the card's ``nvidia-smi``
 name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  Imports nothing of JAX.
@@ -26,8 +40,10 @@ prints no result.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -35,14 +51,25 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ocm_tpu_torch.models import trainer as vae_trainer
 from ocm_tpu_torch.models.simca import fit_simca, predict_classes
-from ocm_tpu_torch.ops import _build, kernels
+from ocm_tpu_torch.models.vae import BatchNormAct, ConvVAE1D, beta_vae_loss
+from ocm_tpu_torch.ops import _build, bn, kernels
 from ocm_tpu_torch.ops.linalg import default_omega
 from ocm_tpu_torch.stats.limits import reduced_distance, t2_limit
 
 N_CAL, LENGTH, N_CLASSES, N_SCORE, K = 700, 500, 3, 98304, 10
 SEED = 0
+# the VAE: __graft_entry__.entry()'s model, bench_all.py's training workload
+VAE_KW = dict(input_length=501, latent_dim=16, conv_blocks=3, n_filters=32,
+              kernel_size=9, stride=2, hidden_fc=256, activation="elu")
+VAE_N, VAE_BATCH, VAE_EPOCHS = 640, 64, 20
+BN_EPS = 1e-5
+# f32 operations per element (the TPU kernels' own cost estimates,
+# ocm_tpu/ops/bn.py:140,162) and per latent entry of K4
+K2_OPS, K3_OPS, K4_OPS = 10, 16, 8
 # (bytes/s, f32 FLOP/s outside the tensor cores): NVIDIA data sheets,
 # dense, at the full power limit
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
@@ -97,6 +124,29 @@ def median_ms(fn, warmup=2, reps=7):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=50):
+    """Device time of one ``fn()`` in ms.  The ``reps`` calls are queued
+    behind a GPU sleep that outlasts their host-side enqueue, so the events
+    time the kernels back to back, not the Python wrapper around them (a
+    single call of a small kernel is otherwise host time)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(2e6 * (2 * host_ms + 1)))   # >= that many ms at <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def library_scores(x, means, comps, invcovs):
@@ -160,6 +210,277 @@ class _Scorer:
         self.d_limit = None
 
 
+def resource_report(logs):
+    """One line per kernel from ptxas's -v report: registers, spills,
+    shared memory."""
+    lines = []
+    for source, text in logs.items():
+        name = None
+        for raw in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", raw)
+            if m:
+                name, spill, regs, smem = m.group(1), "?", "?", "0"
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          raw)
+            if m and name:
+                spill = f"{m.group(1)}/{m.group(2)}"
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", raw)
+            if m and name:
+                regs, smem = m.group(1), m.group(2) or "0"
+                lines.append(f"ptxas {source}: {name} registers={regs} "
+                             f"spill_stores/loads={spill} smem={smem}")
+                name = None
+    return lines
+
+
+def vae_workload(seed=2, n=VAE_N, length=VAE_KW["input_length"]):
+    """bench_all.py's VAE training set: one smooth class, f32."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 1, length)
+    return (rng.normal(1, .08, (n, 1)) * np.sin(2 * np.pi * 3 * t)
+            + rng.normal(0, .02, (n, length))).astype(np.float32)
+
+
+def rel_err(got, ref):
+    """max |got - ref| over max |ref| (the error against the output's scale)."""
+    ref = ref.double()
+    return ((got.double() - ref).abs().max() / ref.abs().max().clamp_min(
+        1e-30)).item()
+
+
+def bn_inputs(shape, gen, dev):
+    nb, nc, nl = shape
+    return ((torch.randn(nb, nc, nl, generator=gen) * 1.5 + 0.3).to(dev),
+            (torch.rand(nc, generator=gen) + 0.5).to(dev),
+            (torch.randn(nc, generator=gen) * 0.5).to(dev),
+            torch.randn(nb, nc, nl, generator=gen).to(dev))
+
+
+def compare_bn(shape, act, gen, dev):
+    """K2 and K3 against their twins on the same inputs; returns the max
+    absolute error.  Tolerance 1e-4 of each output's scale: f32 sums over
+    B*L = 8k-32k terms taken in the block's tree order, not torch's."""
+    x, g, b, dout = bn_inputs(shape, gen, dev)
+    out, mean, var = bn.bn_act_fwd(x, g, b, BN_EPS, act)
+    dx, dg, db = bn.bn_act_bwd(x, g, b, mean, var, dout, BN_EPS, act)
+    torch.cuda.synchronize()
+    ref = bn.bn_act_fwd_plain(x, g, b, BN_EPS, act)
+    ref += bn.bn_act_bwd_plain(x, g, b, mean, var, dout, BN_EPS, act)
+    names = ("out", "mean", "var", "dx", "dgamma", "dbeta")
+    got = (out, mean, var, dx, dg, db)
+    errs = {n: rel_err(a, r) for n, a, r in zip(names, got, ref)}
+    for n, a in zip(names, got):
+        check(bool(torch.isfinite(a).all()), f"BN {shape} {act}: {n} not finite")
+    print(json.dumps({"phase": "bn_vs_plain", "shape": shape, "act": act,
+                      "rel_err_of_scale": errs}), flush=True)
+    for n, e in errs.items():
+        check(e <= 1e-4, f"BN {shape} {act}: {n} error {e} > 1e-4 of scale")
+    return (max((a - r).abs().max().item() for a, r in zip(got[:3], ref[:3])),
+            max((a - r).abs().max().item() for a, r in zip(got[3:], ref[3:])))
+
+
+def compare_reparam(shape, gen, dev):
+    """K4 and K6 against the plain twin and autograd through it.
+    Tolerance 1e-5 of scale: elementwise exp and a k-term f32 row sum."""
+    mu, lv, eps, dz = (torch.randn(4, *shape, generator=gen) * 0.8).to(dev)
+    dkl = torch.randn(shape[0], generator=gen).to(dev)
+    z, kl = kernels.reparam_kl(mu, lv, eps)
+    z_p, kl_p = kernels.reparam_kl_plain(mu, lv, eps)
+    grads = []
+    for fn in (kernels.fused_reparam_kl, kernels.reparam_kl_plain):
+        m, v = mu.clone().requires_grad_(), lv.clone().requires_grad_()
+        torch.autograd.backward(fn(m, v, eps), (dz, dkl))
+        grads.append((m.grad, v.grad))
+    torch.cuda.synchronize()
+    errs = {"z": rel_err(z, z_p), "kl": rel_err(kl, kl_p),
+            "dmu": rel_err(grads[0][0], grads[1][0]),
+            "dlogvar": rel_err(grads[0][1], grads[1][1])}
+    print(json.dumps({"phase": "reparam_vs_plain", "shape": shape,
+                      "rel_err_of_scale": errs}), flush=True)
+    for n, e in errs.items():
+        check(e <= 1e-5, f"reparam {shape}: {n} error {e} > 1e-5 of scale")
+    return max((z - z_p).abs().max().item(), (kl - kl_p).abs().max().item())
+
+
+def path_bn_shapes(dev):
+    """The (B, C, L) each BatchNorm of the entry model sees in a train step."""
+    model = ConvVAE1D(**VAE_KW).to(dev).train()
+    shapes = []
+    for mod in model.modules():
+        if isinstance(mod, BatchNormAct):
+            mod.register_forward_hook(
+                lambda m, i, o: shapes.append(tuple(i[0].shape)))
+    x = torch.zeros(VAE_BATCH, VAE_KW["input_length"], device=dev)
+    with torch.no_grad():
+        model(x, torch.zeros(VAE_BATCH, VAE_KW["latent_dim"], device=dev))
+    return shapes
+
+
+def grads_of(model, cfg, xb, eps):
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = vae_trainer.step_loss(model, cfg, xb, eps)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().double().cpu()
+                         for n, p in model.named_parameters()}
+
+
+def step_vs_cpu_f64(cfg, x_np, dev):
+    """One train step from identical parameters, batch and eps: the card in
+    f32 against the port's CPU path in f64.  cuDNN's and cuBLAS's backward
+    sum in their own order, so the bounds are relative: loss 1e-4, and
+    each gradient's error 1e-3 of its norm (or of 1e-3 of the whole
+    gradient's norm, for the conv biases ahead of a BatchNorm, whose exact
+    gradient is 0)."""
+    model = ConvVAE1D(**VAE_KW, generator=torch.Generator().manual_seed(1))
+    ref_model = copy.deepcopy(model).double()
+    mean, std = x_np.mean(0), x_np.std(0) + 1e-12
+    xb = (x_np[:VAE_BATCH] - mean) / std
+    eps = np.random.default_rng(3).normal(
+        size=(VAE_BATCH, VAE_KW["latent_dim"]))
+    loss, g = grads_of(model.to(dev), cfg,
+                       torch.as_tensor(xb, dtype=torch.float32, device=dev),
+                       torch.as_tensor(eps, dtype=torch.float32, device=dev))
+    loss_r, g_r = grads_of(ref_model, cfg, torch.as_tensor(xb).double(),
+                           torch.as_tensor(eps))
+    total = math.sqrt(sum(float(v.norm()) ** 2 for v in g_r.values()))
+    errs = {n: float((g[n] - g_r[n]).norm())
+            / max(float(g_r[n].norm()), 1e-3 * total) for n in g_r}
+    loss_rel = abs(loss - loss_r) / abs(loss_r)
+    worst = max(errs, key=errs.get)
+    print(json.dumps({"phase": "train_step_vs_cpu_f64", "loss": loss,
+                      "loss_cpu_f64": loss_r, "loss_rel_err": loss_rel,
+                      "worst_grad": worst, "worst_grad_err": errs[worst],
+                      "grad_norm_cpu_f64": total}), flush=True)
+    check(loss_rel <= 1e-4, f"train-step loss differs from CPU f64 by {loss_rel}")
+    check(errs[worst] <= 1e-3, f"gradient {worst} differs from CPU f64 by "
+          f"{errs[worst]} of its norm")
+
+
+def entry_forward_vs_cpu_f64(dev):
+    """__graft_entry__.entry()'s forward and cosine loss on 64 spectra."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (64, VAE_KW["input_length"]))
+    eps = rng.normal(size=(64, VAE_KW["latent_dim"]))
+    model = ConvVAE1D(**VAE_KW).eval()
+    ref_model = copy.deepcopy(model).double()
+    out = []
+    for m, dt, d in ((model.to(dev), torch.float32, dev),
+                     (ref_model, torch.float64, "cpu")):
+        xt = torch.as_tensor(x, dtype=dt, device=d)
+        with torch.no_grad():
+            x_rec, mu, lv = m(xt, torch.as_tensor(eps, dtype=dt, device=d))
+            loss = beta_vae_loss(xt, x_rec, mu, lv, loss_type="cosine")[0]
+        out.append((x_rec.cpu(), loss.item()))
+    (rec, loss), (rec_r, loss_r) = out
+    rec_err, loss_rel = rel_err(rec, rec_r), abs(loss - loss_r) / abs(loss_r)
+    print(json.dumps({"phase": "entry_forward_vs_cpu_f64",
+                      "x_rec_rel_err_of_scale": rec_err, "cosine_loss": loss,
+                      "cosine_loss_cpu_f64": loss_r,
+                      "loss_rel_err": loss_rel}), flush=True)
+    check(bool(torch.isfinite(rec).all())
+          and rec.shape == (64, VAE_KW["input_length"]),
+          f"entry forward: bad output {tuple(rec.shape)}")
+    check(rec_err <= 1e-4, f"entry forward differs from CPU f64 by {rec_err}")
+    check(loss_rel <= 1e-4, f"entry cosine loss differs by {loss_rel}")
+
+
+KERNEL_GROUPS = (("K2/K3 bn_act", ("bn_act",)), ("K4 reparam_kl", ("reparam_kl",)),
+                 ("conv (cuDNN)", ("conv", "cudnn", "implicit", "xmma",
+                                   "dgrad", "wgrad", "fprop")),
+                 ("gemm (cuBLAS)", ("gemm", "gemv", "cutlass", "splitk")),
+                 ("Adam (foreach)", ("multi_tensor", "foreach")),
+                 ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
+
+
+def step_breakdown(step, steps=10):
+    """Where the time of a train step goes, from a torch.profiler trace of
+    ``steps`` steps: device time by kernel group, and the device's idle
+    share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device events minus the ranges user annotations draw on the device
+    # timeline (e.g. "Optimizer.step#Adam.step", which spans Adam's kernels)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key]
+    total_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    groups = {}
+    for e in kern:
+        name = e.key.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other")
+        ms, n = groups.get(group, (0.0, 0))
+        groups[group] = (ms + e.self_device_time_total / 1e3 / steps,
+                         n + e.count / steps)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
+    print(json.dumps({
+        "phase": "train_step_breakdown", "steps": steps,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": total_ms / steps,
+        "device_idle_share": 1.0 - total_ms / wall_ms if wall_ms else None,
+        "kernels_per_step": sum(e.count for e in kern) / steps,
+        "groups_ms_and_launches_per_step": groups,
+        "top_kernels": [(e.key[:80], e.count // steps,
+                         e.self_device_time_total / 1e3 / steps)
+                        for e in top]}), flush=True)
+
+
+def library_bn(x, g, b, act):
+    """One PyTorch formulation of K2: batch_norm in training mode, then the
+    activation.  Timed as a yardstick only; the port never calls it."""
+    y = F.batch_norm(x, None, None, g, b, training=True, eps=BN_EPS)
+    return bn.apply_act(y, act)
+
+
+def time_bn(shapes, gen, dev, bw, f32_rate):
+    """Per-shape K2/K3 records summed over one train step's six shapes."""
+    tot = {f"{k}_{key}": 0.0 for k in ("k2", "k3") for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "call_ms")}
+    bound_by = {"k2": set(), "k3": set()}
+    for shape in shapes:
+        x, g, b, dout = bn_inputs(shape, gen, dev)
+        out, mean, var = bn.bn_act_fwd(x, g, b)
+        xr, gr, br = (t.clone().requires_grad_() for t in (x, g, b))
+        y_lib = library_bn(xr, gr, br, "elu")
+        n = x.numel()
+        nc = shape[1]
+        k2 = (8 * n + 16 * nc, K2_OPS * n)
+        k3 = (12 * n + 24 * nc, K3_OPS * n)
+        row = {"shape": shape,
+               "k2_ms": device_ms(lambda: bn.bn_act_fwd(x, g, b)),
+               "k2_plain_ms": device_ms(
+                   lambda: bn.bn_act_fwd_plain(x, g, b, BN_EPS, "elu")),
+               "k2_library_ms": device_ms(lambda: library_bn(x, g, b, "elu")),
+               "k2_call_ms": median_ms(lambda: bn.bn_act_fwd(x, g, b), 3, 21),
+               "k3_ms": device_ms(
+                   lambda: bn.bn_act_bwd(x, g, b, mean, var, dout)),
+               "k3_plain_ms": device_ms(lambda: bn.bn_act_bwd_plain(
+                   x, g, b, mean, var, dout, BN_EPS, "elu")),
+               "k3_library_ms": device_ms(lambda: torch.autograd.grad(
+                   y_lib, (xr, gr, br), dout, retain_graph=True)),
+               "k3_call_ms": median_ms(
+                   lambda: bn.bn_act_bwd(x, g, b, mean, var, dout), 3, 21)}
+        for key, (nbytes, ops) in (("k2", k2), ("k3", k3)):
+            bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * ops / f32_rate
+            row[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
+            bound_by[key].add("bytes" if bytes_ms >= ops_ms else "operations")
+        print(json.dumps({"phase": "bn_timing", **row}), flush=True)
+        for key in tot:
+            tot[key] += row[key]
+    return tot, {k: "/".join(sorted(v)) for k, v in bound_by.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -185,11 +506,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
-    log = _build.library_path().with_suffix(".log")
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "library": _build.library_path().name}), flush=True)
-    if log.exists():
-        print(log.read_text().strip(), flush=True)
+    for line in resource_report(_build.build_logs()):
+        print(line, flush=True)
 
     cals, xs = make_data()
     cals32 = cals.astype(np.float32)
@@ -258,10 +578,12 @@ def main() -> int:
     t2_limit_ms = median_ms(lambda: t2_limit(models.t2_train, K),
                             warmup=1, reps=3)
     predict_ms = median_ms(lambda: predict_classes(models, x_dev))
-    kernel_ms = median_ms(lambda: kernels.t2q_scores_multiclass(*args),
-                          warmup=3, reps=21)
-    plain_ms = median_ms(lambda: kernels.t2q_scores_multiclass_plain(*args))
-    library_ms = median_ms(lambda: library_scores(*args))
+    call_ms = median_ms(lambda: kernels.t2q_scores_multiclass(*args),
+                        warmup=3, reps=21)
+    kernel_ms = device_ms(lambda: kernels.t2q_scores_multiclass(*args), 20)
+    plain_ms = device_ms(lambda: kernels.t2q_scores_multiclass_plain(*args),
+                         10)
+    library_ms = device_ms(lambda: library_scores(*args), 10)
     bw, f32_rate = peaks(name)
     n, length, c, k = N_SCORE, LENGTH, N_CLASSES, K
     nbytes = 4 * (n * length + c * length + c * k * length + c * k * k
@@ -272,21 +594,119 @@ def main() -> int:
     print(json.dumps({"phase": "timings", "card": card, "fit_ms": fit_ms,
                       "t2_limit_ms": t2_limit_ms,
                       "predict_ms": predict_ms, "kernel_ms": kernel_ms,
+                      "kernel_call_ms": call_ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_bytes_ms": bytes_ms, "bound_flops_ms": flops_ms,
                       "kernel_share_of_bound": bound_ms / kernel_ms,
                       "build_s": build_s}), flush=True)
 
-    record = {"name": "t2q_scores_multiclass", "route": "cuda",
+    records = [{"name": "t2q_scores_multiclass", "route": "cuda",
               "source": "ocm_tpu_torch/csrc/t2q_scores.cu",
               "replaces": "ocm_tpu/ops/kernels.py:45", "launches": launches,
               "max_abs_err": bench_err, "ms": kernel_ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms,
               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-              "library_ms": library_ms}
+              "library_ms": library_ms}]
     check(all(math.isfinite(v) for v in (kernel_ms, plain_ms, library_ms)),
           "a timing is not finite")
-    print(json.dumps({"kernels": [record]}), flush=True)
+
+    # 6. the VAE kernels against their plain twins at the path's shapes
+    shapes = path_bn_shapes(dev)
+    expected = [(64, 32, 501), (64, 64, 251), (64, 128, 126), (64, 64, 252),
+                (64, 32, 504), (64, 32, 504)]
+    check(shapes == expected, f"BatchNorm shapes {shapes} != {expected}")
+    gen = torch.Generator().manual_seed(0)
+    k2_err = k3_err = 0.0
+    for shape, act in [(sh, "elu") for sh in shapes] + [
+            (shapes[0], "gelu"), (shapes[0], "none")]:
+        e2, e3 = compare_bn(shape, act, gen, dev)
+        k2_err, k3_err = max(k2_err, e2), max(k3_err, e3)
+    k4_err = max(compare_reparam((VAE_BATCH, VAE_KW["latent_dim"]), gen, dev),
+                 compare_reparam((300, 5), gen, dev))
+
+    # 7. the VAE main path, as a user calls it, with the launch counts read
+    x_vae = vae_workload()
+    cfg = vae_trainer.TrainConfig(epochs=VAE_EPOCHS, batch_size=VAE_BATCH,
+                                  lr=1e-3, loss_type="bce")
+    bn.bn_act_fwd.launches = bn.bn_act_bwd.launches = 0
+    kernels.reparam_kl.launches = 0
+    result = vae_trainer.train_vae(ConvVAE1D(**VAE_KW), x_vae,
+                                   x_vae[:VAE_BATCH], cfg, seed=0)
+    torch.cuda.synchronize()
+    vae_launches = {"bn_act_fwd": bn.bn_act_fwd.launches,
+                    "bn_act_bwd": bn.bn_act_bwd.launches,
+                    "reparam_kl": kernels.reparam_kl.launches}
+    tl, vl = result.train_losses, result.val_losses
+    print(json.dumps({"phase": "vae_main_path", "launches": vae_launches,
+                      "train_losses": tl.tolist(), "val_losses": vl.tolist(),
+                      "best_epoch": result.best_epoch}), flush=True)
+    steps = VAE_EPOCHS * -(-VAE_N // VAE_BATCH)
+    check(vae_launches == {"bn_act_fwd": 6 * steps, "bn_act_bwd": 6 * steps,
+                           "reparam_kl": steps + VAE_EPOCHS},
+          f"VAE launch counts {vae_launches}")
+    check(bool(np.isfinite(tl).all() and np.isfinite(vl).all()),
+          "a VAE loss is not finite")
+    check(tl[-1] < tl[0], f"train loss did not fall: {tl[0]} -> {tl[-1]}")
+    step_vs_cpu_f64(cfg, x_vae, dev)
+    entry_forward_vs_cpu_f64(dev)
+
+    # 8. VAE timings
+    model = ConvVAE1D(**VAE_KW).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+    step = vae_trainer.make_train_step(model, opt, cfg)
+    xb = torch.as_tensor(x_vae[:VAE_BATCH], device=dev)
+    eps = torch.randn(VAE_BATCH, VAE_KW["latent_dim"], generator=gen).to(dev)
+    train_step_ms = median_ms(lambda: step(xb, eps), 3, 21)
+    step_breakdown(lambda: step(xb, eps))
+    t0 = time.perf_counter()
+    vae_trainer.train_vae(ConvVAE1D(**VAE_KW), x_vae, x_vae[:VAE_BATCH], cfg,
+                          seed=0)
+    torch.cuda.synchronize()
+    train_vae_ms = 1e3 * (time.perf_counter() - t0)
+    bn_t, bn_bound_by = time_bn(shapes, gen, dev, bw, f32_rate)
+    n_lat, k_lat = VAE_BATCH, VAE_KW["latent_dim"]
+    mu, lv, eps4 = (torch.randn(3, n_lat, k_lat, generator=gen) * 0.8).to(dev)
+    k4_ms = device_ms(lambda: kernels.reparam_kl(mu, lv, eps4))
+    k4_call_ms = median_ms(lambda: kernels.reparam_kl(mu, lv, eps4), 3, 21)
+    k4_plain_ms = device_ms(lambda: kernels.reparam_kl_plain(mu, lv, eps4))
+    k4_bytes_ms = 1e3 * (16 * n_lat * k_lat + 4 * n_lat) / bw
+    k4_ops_ms = 1e3 * K4_OPS * n_lat * k_lat / f32_rate
+    print(json.dumps({"phase": "vae_timings", "card": card,
+                      "train_step_ms": train_step_ms,
+                      "train_vae_ms": train_vae_ms,
+                      "steps": steps, **bn_t, "k4_ms": k4_ms,
+                      "k4_plain_ms": k4_plain_ms, "k4_call_ms": k4_call_ms,
+                      "k4_library_ms": None,
+                      "k4_library_reason": "no single PyTorch call computes "
+                                           "z and the per-sample KL"}),
+          flush=True)
+    records += [
+        {"name": "bn_act_fwd", "route": "cuda",
+         "source": "ocm_tpu_torch/csrc/bn_act.cu",
+         "replaces": "ocm_tpu/ops/bn.py:126",
+         "launches": vae_launches["bn_act_fwd"], "max_abs_err": k2_err,
+         "ms": bn_t["k2_ms"], "plain_ms": bn_t["k2_plain_ms"],
+         "bound_ms": bn_t["k2_bound_ms"], "bound_by": bn_bound_by["k2"],
+         "library_ms": bn_t["k2_library_ms"]},
+        {"name": "bn_act_bwd", "route": "cuda",
+         "source": "ocm_tpu_torch/csrc/bn_act.cu",
+         "replaces": "ocm_tpu/ops/bn.py:147",
+         "launches": vae_launches["bn_act_bwd"], "max_abs_err": k3_err,
+         "ms": bn_t["k3_ms"], "plain_ms": bn_t["k3_plain_ms"],
+         "bound_ms": bn_t["k3_bound_ms"], "bound_by": bn_bound_by["k3"],
+         "library_ms": bn_t["k3_library_ms"]},
+        {"name": "reparam_kl", "route": "cuda",
+         "source": "ocm_tpu_torch/csrc/reparam_kl.cu",
+         "replaces": "ocm_tpu/ops/kernels.py:110",
+         "launches": vae_launches["reparam_kl"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": max(k4_bytes_ms, k4_ops_ms),
+         "bound_by": "bytes" if k4_bytes_ms >= k4_ops_ms else "operations",
+         "library_ms": None}]
+    check(all(math.isfinite(v) for v in (train_step_ms, train_vae_ms, k4_ms,
+                                         *bn_t.values())),
+          "a VAE timing is not finite")
+    print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

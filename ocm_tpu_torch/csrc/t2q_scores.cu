@@ -269,8 +269,4 @@ int t2q_scores_multiclass_f32(const float* x, const float* means,
   return kLaunchers[kb - 1](p, rows, (int)smem, (cudaStream_t)stream);
 }
 
-const char* t2q_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 }  // extern "C"

@@ -1,12 +1,19 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``ocm_tpu_torch/csrc`` expose a plain C interface; they are
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library at
-first use and loaded with ``ctypes``.  The library lands in
-``ocm_tpu_torch/_build/`` (git-ignored), named by a hash of the sources
-and flags, so an edited source rebuilds and an unchanged one loads at
-once.  The compiler's resource report (``-Xptxas -v``) is kept beside the
-library as ``<name>.log``.
+The sources in ``ocm_tpu_torch/csrc`` expose a plain C interface.  Each
+``.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``) into its own
+object, all of them at once in parallel processes, and the objects are
+linked into one shared library that is loaded with ``ctypes``.  Objects
+and library land in ``ocm_tpu_torch/_build/`` (git-ignored), each named by
+a hash of what it is built from (source, shared headers, flags), so an
+edited source rebuilds only its own object and an unchanged tree loads at
+once.  Each object's compiler resource report (``-Xptxas -v``: registers,
+shared memory and spills of every kernel) is kept beside it as
+``<object>.log``; ``build_logs`` returns them.
+
+Every C entry point returns the ``cudaGetLastError()`` of its launch;
+``check`` turns a non-zero code into an exception through the library's
+one error-string function, ``ocm_error_string``.
 """
 
 from __future__ import annotations
@@ -22,9 +29,21 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("t2q_scores.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("common.cu", "t2q_scores.cu", "bn_act.cu", "reparam_kl.cu")
+HEADERS = ("common.cuh",)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point -> argument types (pointers and the stream as c_void_p)
+ENTRY_POINTS = {
+    "t2q_scores_multiclass_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "bn_act_fwd_f32": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
+    "bn_act_bwd_f32": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    "reparam_kl_f32": [_P] * 5 + [_I] * 2 + [_P],
+}
 
 
 def _nvcc() -> str:
@@ -40,39 +59,95 @@ def _nvcc() -> str:
     return path
 
 
+def _digest(*parts: bytes) -> str:
+    h = hashlib.sha256()
+    for part in parts:
+        h.update(part)
+    return h.hexdigest()[:16]
+
+
+def object_path(name: str) -> Path:
+    """Where the object of source ``name`` for the current tree lives."""
+    digest = _digest(" ".join(COMPILE_FLAGS).encode(),
+                     *((CSRC / h).read_bytes() for h in HEADERS),
+                     (CSRC / name).read_bytes())
+    return BUILD_DIR / f"{Path(name).stem}_{digest}.o"
+
+
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libocm_tpu_torch_{h.hexdigest()[:16]}.so"
+    digest = _digest(" ".join(LINK_FLAGS).encode(),
+                     *(object_path(name).name.encode() for name in SOURCES))
+    return BUILD_DIR / f"libocm_tpu_torch_{digest}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it is already built; returns its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+def _run(cmd: list[str]) -> None:
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
                            f"{r.stdout}{r.stderr}")
-    out.with_suffix(".log").write_text(r.stdout + r.stderr)
+
+
+def build() -> Path:
+    """Compile what is missing (one nvcc per source, all started together)
+    and link the library unless it is already built; returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    nvcc, pid = _nvcc(), os.getpid()
+    jobs = []
+    for name in SOURCES:
+        obj = object_path(name)
+        if obj.exists():
+            continue
+        tmp = obj.with_name(f"{obj.stem}.{pid}.tmp.o")
+        log = obj.with_name(f"{obj.stem}.{pid}.tmp.log")
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", str(CSRC / name), "-o", str(tmp)]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        jobs.append((cmd, obj, tmp, log, proc))
+    failed = []
+    for cmd, obj, tmp, log, proc in jobs:
+        if proc.wait() != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{log.read_text()}")
+            continue
+        os.replace(log, obj.with_suffix(".log"))
+        os.replace(tmp, obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out.with_name(f"{out.stem}.{pid}.tmp")
+    _run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+          *(str(object_path(name)) for name in SOURCES)])
     os.replace(tmp, out)
     return out
+
+
+def build_logs() -> dict[str, str]:
+    """Each source's compiler report (``-Xptxas -v``) from its build."""
+    logs = {}
+    for name in SOURCES:
+        log = object_path(name).with_suffix(".log")
+        logs[name] = log.read_text() if log.exists() else "(no log)"
+    return logs
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use, with typed entry points."""
     lib = ctypes.CDLL(str(build()))
-    fn = lib.t2q_scores_multiclass_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.t2q_error_string.argtypes = [ctypes.c_int]
-    lib.t2q_error_string.restype = ctypes.c_char_p
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ocm_error_string.argtypes = [ctypes.c_int]
+    lib.ocm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        msg = library().ocm_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,218 @@
+"""Training-mode BatchNorm + activation, fused into one kernel each way.
+
+Port of ``ocm_tpu/ops/bn.py``.  ``fused_bn_act`` is a
+``torch.autograd.Function`` whose forward is kernel K2 (``bn_act_fwd``,
+port of ``_bn_fwd_pallas``, ``bn.py:126``) and whose backward is kernel K3
+(``bn_act_bwd``, port of ``_bn_bwd_pallas``, ``bn.py:147``), both in
+``ocm_tpu_torch/csrc/bn_act.cu``.  Semantics are flax's
+``BatchNorm(use_fast_variance=True)`` followed by the activation: f32
+batch statistics, the fast variance ``max(E[x^2] - E[x]^2, 0)``, and
+``y = (x - mean) * (rsqrt(var + eps) * gamma) + beta``.
+
+Layout: torch's conv layout (B, C, L); statistics are taken over every
+axis but 1, with no relayout (JAX's module is channels-last, ``(..., C)``).
+The kernels take float32, contiguous, 3-d tensors; on a CPU tensor the
+wrappers compute the plain twins ``bn_act_fwd_plain``/``bn_act_bwd_plain``
+(same formulas), on a CUDA tensor they launch or raise.  There is no size
+gate: the card has no counterpart of the TPU kernel's VMEM budget.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ocm_tpu_torch.ops import _build
+from ocm_tpu_torch.ops.kernels import check_cuda_f32, stream_of
+
+ACTS = ("elu", "gelu", "none")
+
+
+def _act_code(act: str) -> int:
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}; expected one of {ACTS}")
+    return ACTS.index(act)
+
+
+def apply_act(y, act: str):
+    """ELU, exact GELU or identity."""
+    _act_code(act)
+    if act == "elu":
+        return F.elu(y)
+    if act == "gelu":
+        return F.gelu(y, approximate="none")
+    return y
+
+
+def act_grad(y, act: str):
+    """d act(y) / dy evaluated at pre-activation y."""
+    _act_code(act)
+    if act == "elu":
+        return torch.where(y > 0, torch.ones_like(y), torch.exp(y))
+    if act == "gelu":
+        # exact GELU': Phi(y) + y * phi(y)
+        phi = torch.exp(-0.5 * y * y) * (1.0 / math.sqrt(2.0 * math.pi))
+        cdf = 0.5 * (1.0 + torch.erf(y / math.sqrt(2.0)))
+        return cdf + y * phi
+    return torch.ones_like(y)
+
+
+def _stat_dims(x):
+    return [0] + list(range(2, x.dim()))
+
+
+def _per_channel(v, x):
+    """(C,) -> broadcastable against x (B, C, ...)."""
+    return v.reshape((1, -1) + (1,) * (x.dim() - 2))
+
+
+def bn_act_stats(x):
+    """Batch mean and fast variance of (B, C, ...) over every axis but 1,
+    in at least float32."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    dims = _stat_dims(x)
+    mean = xf.mean(dims)
+    mean2 = (xf * xf).mean(dims)
+    return mean, (mean2 - mean * mean).clamp_min(0.0)
+
+
+def bn_act_normalize(x, mean, var, gamma, beta, eps: float, act: str,
+                     dtype=None):
+    """act((x - mean) * (rsqrt(var + eps) * gamma) + beta), flax's op order."""
+    f = mean.dtype
+    mul = torch.rsqrt(var + eps) * gamma.to(f)
+    y = ((x.to(f) - _per_channel(mean, x)) * _per_channel(mul, x)
+         + _per_channel(beta.to(f), x))
+    return apply_act(y, act).to(dtype or x.dtype)
+
+
+def bn_act_fwd_plain(x, gamma, beta, eps: float, act: str):
+    """Plain twin of K2: (out, mean, var)."""
+    mean, var = bn_act_stats(x)
+    return bn_act_normalize(x, mean, var, gamma, beta, eps, act), mean, var
+
+
+def bn_act_bwd_plain(x, gamma, beta, mean, var, dout, eps: float, act: str):
+    """Plain twin of K3: (dx, dgamma, dbeta) from the saved inputs."""
+    f = mean.dtype
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x.to(f) - _per_channel(mean, x)) * _per_channel(rstd, x)
+    y = xhat * _per_channel(gamma.to(f), x) + _per_channel(beta.to(f), x)
+    dy = dout.to(f) * act_grad(y, act)
+    dims = _stat_dims(x)
+    dbeta = dy.sum(dims)
+    dgamma = (dy * xhat).sum(dims)
+    inv_n = 1.0 / (x.numel() // x.shape[1])
+    dx = _per_channel(rstd * gamma.to(f), x) * (
+        dy - _per_channel(dbeta * inv_n, x) - xhat * _per_channel(
+            dgamma * inv_n, x))
+    return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+
+
+def _check(what, x, channel_vectors, like_x=None):
+    """x and each tensor of ``like_x`` contiguous f32 (B, C, L) CUDA tensors
+    of one shape, each of ``channel_vectors`` of shape (C,)."""
+    like_x = like_x or {}
+    check_cuda_f32(what, {"x": (x, 3), **{k: (v, 3) for k, v in like_x.items()},
+                          **{k: (v, 1) for k, v in channel_vectors.items()}})
+    c = x.shape[1]
+    for name, v in like_x.items():
+        if v.shape != x.shape:
+            raise ValueError(f"{what}: {name} has shape {tuple(v.shape)}, "
+                             f"not that of x {tuple(x.shape)}")
+    for name, v in channel_vectors.items():
+        if v.shape != (c,):
+            raise ValueError(f"{what}: {name} has shape {tuple(v.shape)}, "
+                             f"expected ({c},) for x {tuple(x.shape)}")
+    if x.numel() == 0:
+        raise ValueError(f"{what}: empty batch {tuple(x.shape)}")
+
+
+def bn_act_fwd(x, gamma, beta, eps: float = 1e-5, act: str = "elu"):
+    """K2: training-mode BatchNorm + activation of x (B, C, L).
+
+    Returns (out, mean, var), mean/var the (C,) batch statistics.  CPU
+    tensors: the plain twin; CUDA tensors: the kernel on the current stream.
+    """
+    code = _act_code(act)
+    if x.device.type == "cpu":
+        return bn_act_fwd_plain(x, gamma, beta, eps, act)
+    _check("bn_act_fwd", x, {"gamma": gamma, "beta": beta})
+    nb, nc, nl = x.shape
+    out = torch.empty_like(x)
+    mean = torch.empty((nc,), dtype=torch.float32, device=x.device)
+    var = torch.empty_like(mean)
+    with torch.cuda.device(x.device):
+        err = _build.library().bn_act_fwd_f32(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), nb, nc, nl, eps, code,
+            stream_of(x))
+    _build.check(err, "bn_act_fwd")
+    bn_act_fwd.launches += 1
+    return out, mean, var
+
+
+bn_act_fwd.launches = 0
+
+
+def bn_act_bwd(x, gamma, beta, mean, var, dout, eps: float = 1e-5,
+               act: str = "elu"):
+    """K3: gradient of ``bn_act_fwd``'s out w.r.t. x, gamma and beta.
+
+    Returns (dx, dgamma, dbeta).  CPU tensors: the plain twin; CUDA
+    tensors: the kernel on the current stream.
+    """
+    code = _act_code(act)
+    if x.device.type == "cpu":
+        return bn_act_bwd_plain(x, gamma, beta, mean, var, dout, eps, act)
+    _check("bn_act_bwd", x, {"gamma": gamma, "beta": beta, "mean": mean,
+                             "var": var}, {"dout": dout})
+    nb, nc, nl = x.shape
+    dx = torch.empty_like(x)
+    dgamma = torch.empty_like(gamma)
+    dbeta = torch.empty_like(beta)
+    with torch.cuda.device(x.device):
+        err = _build.library().bn_act_bwd_f32(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
+            var.data_ptr(), dout.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+            dbeta.data_ptr(), nb, nc, nl, eps, code, stream_of(x))
+    _build.check(err, "bn_act_bwd")
+    bn_act_bwd.launches += 1
+    return dx, dgamma, dbeta
+
+
+bn_act_bwd.launches = 0
+
+
+class _FusedBNAct(torch.autograd.Function):
+    """K2 forward, K3 backward; the saved residuals are x, gamma, beta,
+    mean, var (``ocm_tpu/ops/bn.py:214``)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, act):
+        x = x.contiguous()
+        out, mean, var = bn_act_fwd(x, gamma, beta, eps, act)
+        ctx.save_for_backward(x, gamma, beta, mean, var)
+        ctx.eps, ctx.act = eps, act
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        x, gamma, beta, mean, var = ctx.saved_tensors
+        dx, dgamma, dbeta = bn_act_bwd(x, gamma, beta, mean, var,
+                                       dout.contiguous(), ctx.eps, ctx.act)
+        return dx, dgamma, dbeta, None, None
+
+
+def fused_bn_act(x, gamma, beta, eps: float = 1e-5, act: str = "elu"):
+    """Training-mode BatchNorm + activation of x (B, C, ...), one kernel
+    each direction on the card.
+
+    Returns ``(out, mean, var)``; mean/var are the batch statistics for the
+    running-average update and carry no gradient (flax's convention: the
+    running stats are state outside autodiff).
+    """
+    return _FusedBNAct.apply(x, gamma, beta, eps, act)

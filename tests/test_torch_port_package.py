@@ -1,6 +1,6 @@
 """Package rules of the port: it imports neither JAX nor ``ocm_tpu``, it
 never runs quietly on the CPU when CUDA was (implicitly) asked for, and
-its kernel wrapper counts only real kernel launches.  The kernel-vs-twin
+its kernel wrappers count only real kernel launches.  The kernel-vs-twin
 tests need a CUDA card and skip without one."""
 
 import ast
@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from ocm_tpu_torch.models import simca as TS
-from ocm_tpu_torch.ops import kernels
+from ocm_tpu_torch.models import trainer as TT
+from ocm_tpu_torch.models import vae as TV
+from ocm_tpu_torch.ops import bn, kernels
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ocm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -22,7 +24,9 @@ PORT_FILES = sorted((ROOT / "ocm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smok
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, ocm_tpu_torch, ocm_tpu_torch.models.simca, "
-            "ocm_tpu_torch.ops.kernels, ocm_tpu_torch.ops._build; "
+            "ocm_tpu_torch.ops.kernels, ocm_tpu_torch.ops._build, "
+            "ocm_tpu_torch.ops.bn, ocm_tpu_torch.models.vae, "
+            "ocm_tpu_torch.models.bundle, ocm_tpu_torch.models.trainer; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'ocm_tpu' or m.startswith('ocm_tpu.')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -55,6 +59,10 @@ def test_numpy_input_without_device_needs_cuda():
         TS.fit_simca(x, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         TS.simca_model_from_numpy({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TT.train_vae(TV.ConvVAE1D(12, 2, conv_blocks=1, n_filters=4,
+                                  hidden_fc=8), x, x[:4],
+                     TT.TrainConfig(epochs=1), seed=0)
 
 
 def test_cpu_wrapper_does_not_count_launches():
@@ -70,10 +78,32 @@ def test_cpu_wrapper_does_not_count_launches():
     assert t2.shape == q.shape == (2, 20)
 
 
+def test_cpu_vae_wrappers_do_not_count_launches():
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 3, 10, generator=gen)
+    g, b = torch.ones(3), torch.zeros(3)
+    mu, lv, eps = torch.randn(3, 5, 4, generator=gen)
+    before = (bn.bn_act_fwd.launches, bn.bn_act_bwd.launches,
+              kernels.reparam_kl.launches)
+    out, mean, var = bn.bn_act_fwd(x, g, b)
+    bn.bn_act_bwd(x, g, b, mean, var, torch.ones_like(x))
+    kernels.reparam_kl(mu, lv, eps)
+    assert (bn.bn_act_fwd.launches, bn.bn_act_bwd.launches,
+            kernels.reparam_kl.launches) == before
+    assert out.shape == x.shape and mean.shape == var.shape == (3,)
+
+
 def test_non_cpu_non_cuda_tensor_raises():
     x = torch.zeros(4, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.t2q_scores_multiclass(x, x[:1], x[None, :1], x[None, :1, :1])
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.reparam_kl(x, x, x)
+    x3, c = torch.zeros(2, 4, 8, device="meta"), torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        bn.bn_act_fwd(x3, c, c)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        bn.bn_act_bwd(x3, c, c, c, c, x3)
 
 
 @pytest.fixture
@@ -128,3 +158,62 @@ def test_kernel_rejects_float64(cuda):
     x = torch.zeros(8, 4, dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         kernels.t2q_scores_multiclass(x, x[:1], x[None, :1], x[None, :1, :1])
+
+
+# (B, C, L, act): the six BatchNorm shapes of the entry model's train step
+# at B 64 cut to B 8, ragged shapes, and the other activations
+BN_CASES = [(8, 32, 501, "elu"), (8, 64, 251, "elu"), (8, 128, 126, "elu"),
+            (8, 64, 252, "elu"), (8, 32, 504, "elu"), (3, 5, 7, "elu"),
+            (8, 32, 501, "gelu"), (2, 3, 1000, "none"), (1, 2, 3, "elu")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BN_CASES, ids=str)
+def test_bn_kernels_match_plain_twins(cuda, case):
+    nb, nc, nl, act = case
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(nb, nc, nl, generator=gen) * 1.5 + 0.3).to(cuda)
+    g = (torch.rand(nc, generator=gen) + 0.5).to(cuda)
+    b = (torch.randn(nc, generator=gen) * 0.5).to(cuda)
+    dout = torch.randn(nb, nc, nl, generator=gen).to(cuda)
+    before = (bn.bn_act_fwd.launches, bn.bn_act_bwd.launches)
+    out, mean, var = bn.bn_act_fwd(x, g, b, 1e-5, act)
+    dx, dg, db = bn.bn_act_bwd(x, g, b, mean, var, dout, 1e-5, act)
+    torch.cuda.synchronize()
+    assert (bn.bn_act_fwd.launches, bn.bn_act_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = bn.bn_act_fwd_plain(x, g, b, 1e-5, act)
+    ref_b = bn.bn_act_bwd_plain(x, g, b, mean, var, dout, 1e-5, act)
+    # f32 sums of B*L terms in another order: the statistics and dgamma/
+    # dbeta agree to ~1e-6 relative, elementwise outputs to ~1e-5
+    for got, want, what in zip((out, mean, var, dx, dg, db),
+                               (*ref, *ref_b),
+                               ("out", "mean", "var", "dx", "dg", "db")):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item(),
+                                   msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 16), (300, 5), (7, 40), (1, 1)],
+                         ids=str)
+def test_reparam_kernel_matches_plain_twin(cuda, shape):
+    gen = torch.Generator().manual_seed(1)
+    mu, lv, eps = (torch.randn(3, *shape, generator=gen) * 0.8).to(cuda)
+    before = kernels.reparam_kl.launches
+    z, kl = kernels.reparam_kl(mu, lv, eps)
+    torch.cuda.synchronize()
+    assert kernels.reparam_kl.launches == before + 1
+    z_p, kl_p = kernels.reparam_kl_plain(mu, lv, eps)
+    torch.testing.assert_close(z, z_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(kl, kl_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_vae_kernels_reject_float64(cuda):
+    x = torch.zeros(2, 3, 4, dtype=torch.float64, device=cuda)
+    c = torch.ones(3, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        bn.bn_act_fwd(x, c, c)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.reparam_kl(x[0], x[0], x[0])

@@ -30,3 +30,36 @@ def make_data(seed=0, n_cal=N_CAL, length=LENGTH, n_classes=N_CLASSES,
     parts.append(rng.normal(0, 0.05, size=(n_score - per * n_classes, length))
                  + np.sin(2 * np.pi * 3 * t)[None, :])
     return cals, np.concatenate(parts)
+
+
+# --- the VAE slice ---------------------------------------------------------
+
+# the parity tests' small ConvVAE1D (the entry model is L 501, latent 16,
+# 3 blocks, 32 filters, hidden 256)
+VAE_SMALL = dict(input_length=48, latent_dim=4, conv_blocks=2, n_filters=8,
+                 kernel_size=9, stride=2, hidden_fc=32)
+VAE_ENTRY = dict(input_length=501, latent_dim=16, conv_blocks=3, n_filters=32,
+                 kernel_size=9, stride=2, hidden_fc=256)
+
+
+def vae_spectra(n, length, seed=2):
+    """``bench_all.py``'s VAE workload recipe (one smooth class), f64."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 1, length)
+    return (rng.normal(1, .08, (n, 1)) * np.sin(2 * np.pi * 3 * t)
+            + rng.normal(0, .02, (n, length)))
+
+
+def perturb_bn(params, batch_stats, seed=5):
+    """Random BatchNorm scale/bias and running stats (numpy trees), so that
+    a test exercises where each of them goes."""
+    rng = np.random.default_rng(seed)
+    params = {k: dict(v) for k, v in params.items()}
+    stats = {}
+    for name, s in batch_stats.items():
+        c = np.shape(s["mean"])[0]
+        params[name] = {"scale": rng.uniform(0.5, 1.5, c),
+                        "bias": rng.normal(0, 0.3, c)}
+        stats[name] = {"mean": rng.normal(0, 0.3, c),
+                       "var": rng.uniform(0.5, 1.5, c)}
+    return params, stats
