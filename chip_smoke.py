@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full width and holds every hand-written
+Drives the port's three paths at full width and holds every hand-written
 CUDA kernel against its plain PyTorch twin:
 
 - SIMCA (first slice): a batched 3-class fit (3 x 700 x 500, k = 10,
@@ -12,11 +12,18 @@ CUDA kernel against its plain PyTorch twin:
   (``ConvVAE1D(501, 16)``, 3 conv blocks, 32 filters) on 640 spectra for
   20 epochs at batch 64 (``bench_all.py``'s training workload), through
   kernels K2/K3 (BatchNorm + activation, forward/backward) and K4
-  (reparameterize + KL).
+  (reparameterize + KL);
+- the VAE decisions (third slice): ``bench_all.py``'s VAE-SIMCA workload
+  (512 calibration spectra, 3 epochs at batch 64, cosine loss), the
+  thresholds deterministic and with the reference's sampled forward
+  (kernel K5, noise drawn in the kernel), ``fit_vaesimca``, and a resident
+  ``VAEScorer`` screening 65,536 spectra in chunks of 16,384 with every
+  decision variant, single- and 3-class.
 
 Phases, each of which exits non-zero on failure:
 
-1. device and numerics: card name and power limit, TF32 off;
+1. device and numerics: card name and power limit, TF32 off, cuDNN's
+   deterministic mode (selected when the package loads);
 2. build: the kernel library (one nvcc per source, in parallel, sm_90a),
    and every kernel's registers, shared memory and spills;
 3. K1 vs its plain twin at the bench shapes and three other shapes;
@@ -30,7 +37,21 @@ Phases, each of which exits non-zero on failure:
    finite and falling losses, one train step on the card in f32 against
    the port's CPU f64, and the entry model's forward and cosine loss;
 8. VAE timings: one train step, the 20-epoch run, and each kernel beside
-   its bound, its twin and the nearest PyTorch call.
+   its bound, its twin and the nearest PyTorch call;
+9. K5 vs its plain twin at (512, 16), (65,536, 16) and (300, 5): the
+   kernel's own noise, z and KL, determinism and keying, and the noise's
+   moments, Kolmogorov-Smirnov distance and neighbour correlations;
+10. the decision path as a user calls it (numpy in): train, calibrate
+   (exactly 1 K5 launch for the sampled calibration, none otherwise),
+   ``fit_vaesimca``, the six screens (no K5), the 3-class stacked screen
+   equal to 3 single-class ones, and the entry's sampled eval forward
+   (1 K5 launch);
+11. the card (f32) against the port's CPU f64 on the same trained bundle:
+   thresholds, limits, and a 4,096-spectrum screen per variant;
+12. decision timings: each screen, the calibration fits, a torch.profiler
+   breakdown of one ``vaesimca`` chunk, the cost of cuDNN's deterministic
+   mode, where a chunk of pinned 'f' spends its time, and K5 beside its
+   bound and twin.
 
 Prints a JSON line with every kernel's record, the card's ``nvidia-smi``
 name and power limit, and as its last line
@@ -40,6 +61,7 @@ prints no result.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -53,11 +75,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ocm_tpu_torch.models import bundle as vae_bundle
 from ocm_tpu_torch.models import trainer as vae_trainer
+from ocm_tpu_torch.models import vae_decision, vaesimca
 from ocm_tpu_torch.models.simca import fit_simca, predict_classes
 from ocm_tpu_torch.models.vae import BatchNormAct, ConvVAE1D, beta_vae_loss
 from ocm_tpu_torch.ops import _build, bn, kernels
 from ocm_tpu_torch.ops.linalg import default_omega
+from ocm_tpu_torch.serving import VAEScorer
+from ocm_tpu_torch.stats import metrics
 from ocm_tpu_torch.stats.limits import reduced_distance, t2_limit
 
 N_CAL, LENGTH, N_CLASSES, N_SCORE, K = 700, 500, 3, 98304, 10
@@ -70,6 +96,16 @@ BN_EPS = 1e-5
 # f32 operations per element (the TPU kernels' own cost estimates,
 # ocm_tpu/ops/bn.py:140,162) and per latent entry of K4
 K2_OPS, K3_OPS, K4_OPS = 10, 16, 8
+# K5's operations per element pair, each counted at the f32 rate: ten
+# Philox rounds of 2 mulhi, 2 mullo, 4 xor, 2 key adds (100); per element
+# Box-Muller's shifts, conversions, scalings, log, sqrt and cos (12) and
+# z's and the KL's exps, multiplies and adds (7)
+K5_OPS_PER_PAIR = 100 + 2 * (12 + 7)
+# the decision slice: bench_all.py:229-281's VAE-SIMCA workload
+DEC_N_CAL, DEC_N_TEST, DEC_CHUNK, DEC_EPOCHS = 512, 65536, 16384, 3
+DEC_N_MULTI, DEC_N_CPU = 16384, 4096
+VARIANTS = (("d2", {}), ("d2_q", {}), ("f", {}), ("f_pinned",
+            {"pin_f_stats": True}), ("full", {}), ("vaesimca", {}))
 # (bytes/s, f32 FLOP/s outside the tensor cores): NVIDIA data sheets,
 # dense, at the full power limit
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
@@ -386,34 +422,44 @@ def entry_forward_vs_cpu_f64(dev):
     check(loss_rel <= 1e-4, f"entry cosine loss differs by {loss_rel}")
 
 
-KERNEL_GROUPS = (("K2/K3 bn_act", ("bn_act",)), ("K4 reparam_kl", ("reparam_kl",)),
-                 ("conv (cuDNN)", ("conv", "cudnn", "implicit", "xmma",
-                                   "dgrad", "wgrad", "fprop")),
+KERNEL_GROUPS = (("K2/K3 bn_act", ("bn_act",)),
+                 ("K5 reparam_kl_sample", ("reparam_kl_sample",)),
+                 ("K4 reparam_kl", ("reparam_kl",)),
+                 ("conv (cuDNN)", ("conv", "cudnn", "dgrad", "wgrad",
+                                   "fprop")),
                  ("gemm (cuBLAS)", ("gemm", "gemv", "cutlass", "splitk")),
                  ("Adam (foreach)", ("multi_tensor", "foreach")),
+                 ("copy (H2D/D2H)", ("memcpy",)),
+                 ("activation (ELU/GELU)", ("elu_kernel", "gelu_kernel")),
                  ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
+# the host calls that launch a kernel, to hold the trace's kernel count to
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
 
 
-def step_breakdown(step, steps=10):
-    """Where the time of a train step goes, from a torch.profiler trace of
-    ``steps`` steps: device time by kernel group, and the device's idle
-    share of the wall time."""
+def breakdown(fn, reps=10, phase="train_step_breakdown", unit="step"):
+    """Where the time of ``fn()`` goes, from a torch.profiler trace of
+    ``reps`` calls: device time by kernel group per ``unit``, the device's
+    idle share of the wall time, and the host's launch calls beside the
+    kernels the trace holds (equal when the trace is complete)."""
     from torch.profiler import ProfilerActivity, profile
-    step()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device events minus the ranges user annotations draw on the device
-    # timeline (e.g. "Optimizer.step#Adam.step", which spans Adam's kernels)
+    # timeline (e.g. "Optimizer.step#Adam.step", which spans Adam's
+    # kernels); kernel names hold '#' too, in their lambdas' names
+    # ("...::{lambda()#1}..."), but never in their first word
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and "#" not in e.key]
+            and not re.match(r"[\w.]+#", e.key)]
     total_ms = sum(e.self_device_time_total for e in kern) / 1e3
     groups = {}
     for e in kern:
@@ -421,19 +467,32 @@ def step_breakdown(step, steps=10):
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in name for k in keys)), "other")
         ms, n = groups.get(group, (0.0, 0))
-        groups[group] = (ms + e.self_device_time_total / 1e3 / steps,
-                         n + e.count / steps)
+        groups[group] = (ms + e.self_device_time_total / 1e3 / reps,
+                         n + e.count / reps)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
-    print(json.dumps({
-        "phase": "train_step_breakdown", "steps": steps,
-        "wall_ms_per_step": wall_ms / steps,
-        "device_ms_per_step": total_ms / steps,
-        "device_idle_share": 1.0 - total_ms / wall_ms if wall_ms else None,
-        "kernels_per_step": sum(e.count for e in kern) / steps,
-        "groups_ms_and_launches_per_step": groups,
-        "top_kernels": [(e.key[:80], e.count // steps,
-                         e.self_device_time_total / 1e3 / steps)
-                        for e in top]}), flush=True)
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    line = {"phase": phase, f"{unit}s": reps,
+            f"wall_ms_per_{unit}": wall_ms / reps,
+            f"device_ms_per_{unit}": total_ms / reps,
+            "device_idle_share": 1.0 - total_ms / wall_ms if wall_ms else None,
+            f"kernels_per_{unit}": sum(e.count for e in kern
+                                       if "memcpy" not in e.key.lower()
+                                       and "memset" not in e.key.lower())
+            / reps,
+            f"launch_calls_per_{unit}": sum(
+                e.count for e in prof.key_averages()
+                if e.key in LAUNCH_CALLS) / reps,
+            f"groups_ms_and_launches_per_{unit}": groups,
+            "top_kernels": [(e.key[:80], e.count // reps,
+                             e.self_device_time_total / 1e3 / reps)
+                            for e in top],
+            "top_host_ops_self_ms": [(e.key[:60], e.count // reps,
+                                      e.self_cpu_time_total / 1e3 / reps)
+                                     for e in host]}
+    print(json.dumps(line), flush=True)
+    return line
 
 
 def library_bn(x, g, b, act):
@@ -481,6 +540,430 @@ def time_bn(shapes, gen, dev, bw, f32_rate):
     return tot, {k: "/".join(sorted(v)) for k, v in bound_by.items()}
 
 
+# --- the decision slice -----------------------------------------------------
+
+def compare_sample(shape, gen, dev, seed=0x5EED_0123_4567_89AB, offset=7):
+    """K5 against its plain twin on the same mu, logvar, seed and offset.
+    The twin reproduces the kernel's Philox bits exactly, so the kernel's
+    own noise must equal the twin's to 1e-6 of max(|eps|, 1) (the device's
+    f32 log, cos and sqrt against torch's, a few ulp apart), and z and KL
+    to 1e-6 of their scale.  The same seed must give identical output,
+    another seed or offset other output.  Returns (max abs error of z and
+    KL, the kernel's noise)."""
+    mu, lv = (torch.randn(2, *shape, generator=gen) * 0.8).to(dev)
+    z, kl, eps = kernels.reparam_kl_sample(mu, lv, seed, offset,
+                                           return_eps=True)
+    z_p, kl_p, eps_p = kernels.reparam_kl_sample_plain(mu, lv, seed, offset)
+    z2, kl2 = kernels.reparam_kl_sample(mu, lv, seed, offset)
+    z_seed = kernels.reparam_kl_sample(mu, lv, seed + 1, offset)[0]
+    z_off = kernels.reparam_kl_sample(mu, lv, seed, offset + 1)[0]
+    torch.cuda.synchronize()
+    errs = {"eps": ((eps - eps_p).abs()
+                    / eps_p.abs().clamp_min(1.0)).max().item(),
+            "z": rel_err(z, z_p), "kl": rel_err(kl, kl_p)}
+    same = bool(torch.equal(z, z2) and torch.equal(kl, kl2))
+    keyed = not (torch.equal(z, z_seed) or torch.equal(z, z_off))
+    print(json.dumps({"phase": "reparam_sample_vs_plain", "shape": shape,
+                      "rel_err": errs, "same_seed_identical": same,
+                      "other_seed_or_offset_differs": keyed}), flush=True)
+    for n, e in errs.items():
+        check(e <= 1e-6, f"K5 {shape}: {n} error {e} > 1e-6")
+    check(same, f"K5 {shape}: the same seed gave different output")
+    check(keyed, f"K5 {shape}: another seed or offset gave the same output")
+    return max((z - z_p).abs().max().item(),
+               (kl - kl_p).abs().max().item()), eps
+
+
+def noise_statistics(eps):
+    """The kernel's noise against N(0, 1): over 1,048,576 draws the mean's
+    standard error is 1e-3, the variance's 1.4e-3, and the KS distance's
+    99.9 % point 1.95e-3; neighbouring columns and rows uncorrelated."""
+    from scipy import stats
+    e = eps.double()
+    flat = e.flatten()
+
+    def corr(a, b):
+        return torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1]
+
+    line = {"phase": "reparam_sample_noise", "draws": flat.numel(),
+            "mean": flat.mean().item(), "var": flat.var().item(),
+            "ks": float(stats.kstest(flat.cpu().numpy(), "norm").statistic),
+            "corr_columns": corr(e[:, :-1], e[:, 1:]).item(),
+            "corr_rows": corr(e[:-1], e[1:]).item(),
+            "max_abs": flat.abs().max().item()}
+    print(json.dumps(line), flush=True)
+    check(abs(line["mean"]) < 5e-3, f"K5 noise mean {line['mean']}")
+    check(abs(line["var"] - 1.0) < 1e-2, f"K5 noise variance {line['var']}")
+    check(line["ks"] < 2e-3, f"K5 noise KS distance {line['ks']}")
+    for key in ("corr_columns", "corr_rows"):
+        check(abs(line[key]) < 5e-3, f"K5 noise {key} {line[key]}")
+
+
+def decision_workload(seed, n_cal, n_test, freq=3):
+    """bench_all.py:234-241's VAE-SIMCA spectra (f32): calibration and test
+    draws of one smooth class; ``freq`` 3 is the benchmark's."""
+    rng = np.random.default_rng(seed)
+    length = VAE_KW["input_length"]
+    t = np.linspace(0, 1, length)
+    base = np.sin(2 * np.pi * freq * t)
+    x_cal = (rng.normal(1, .08, (n_cal, 1)) * base
+             + rng.normal(0, .02, (n_cal, length))).astype(np.float32)
+    x_test = (rng.normal(1, .2, (n_test, 1)) * base
+              + rng.normal(0, .05, (n_test, length))).astype(np.float32)
+    return x_cal, x_test
+
+
+def train_and_calibrate(x_cal, seed):
+    """``bench_all.py``'s 3-epoch training of the entry model, then the
+    deterministic thresholds and ``fit_vaesimca`` with its defaults.
+    Returns (model, trained bundle, calibrated bundle, VAE-SIMCA model)."""
+    cfg = vae_trainer.TrainConfig(epochs=DEC_EPOCHS, batch_size=VAE_BATCH,
+                                  loss_type="cosine")
+    model = ConvVAE1D(**VAE_KW, generator=torch.Generator().manual_seed(seed))
+    trained = vae_trainer.train_vae(model, x_cal, x_cal[:VAE_BATCH], cfg,
+                                    seed=seed).bundle
+    bundle = vae_decision.fit_thresholds(model, trained, x_cal,
+                                         loss_type="cosine")
+    return model, trained, bundle, vaesimca.fit_vaesimca(model, bundle, x_cal)
+
+
+def make_scorers(model, bundle, vs, chunk):
+    """One resident ``VAEScorer`` per decision variant (pinned 'f' too)."""
+    return {label: VAEScorer(
+        model, bundle, variant=label.removesuffix("_pinned"),
+        loss_type="cosine", chunk_size=chunk, **extra,
+        vaesimca_model=vs if label == "vaesimca" else None)
+        for label, extra in VARIANTS}
+
+
+@contextlib.contextmanager
+def cudnn_nondeterministic():
+    """cuDNN's default algorithms, whose sums run in a varying order, for
+    a measurement of what the package's deterministic setting costs; the
+    setting comes back after.  This script decides in one thread only."""
+    torch.backends.cudnn.deterministic = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = True
+
+
+def pinned_f_split(scorer, prepared, reps=3):
+    """Where one chunk of pinned 'f' spends its time, medians in ms: the
+    decision on the device (network outputs, events), the pageable copy of
+    the standardized spectra, reconstructions and mu to the host, and the
+    host's float64 statistics (``qhf_batch_host``)."""
+    split = {"device_ms": [], "fetch_ms": [], "host_stats_ms": []}
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = scorer._decide(*prepared[0][0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = {k: v.cpu().numpy() for k, v in res.items()}
+        t2 = time.perf_counter()
+        scorer._post(out)
+        t3 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[key].append(1e3 * dt)
+    line = {k: statistics.median(v[1:]) for k, v in split.items()}
+    line["fetched_mb"] = sum(v.numel() * v.element_size()
+                             for v in res.values()) / 1e6
+    return line
+
+
+def accept_rate(accept):
+    """The share of a one-class test set accepted: the screen's
+    sensitivity, through the port's conformity metrics."""
+    acc = np.asarray(accept).astype(np.int64)
+    return metrics.conformity_metrics(np.zeros(acc.shape[0]), acc, 0,
+                                      device="cpu").sensitivity.item() / 100
+
+
+def check_limits(label, values):
+    for key, v in values.items():
+        v = torch.as_tensor(v)
+        check(bool(torch.isfinite(v).all() and (v > 0).all()),
+              f"{label}: {key} not finite and > 0: {v.tolist()}")
+
+
+def entry_sampled_forward(dev):
+    """__graft_entry__.entry()'s eval forward with z sampled, as its
+    ``rngs={'reparam': ...}`` does, through K5, and its cosine loss, on 64
+    spectra; against the port's CPU f64 forward with the same seed (its
+    plain twin draws the same noise), to 1e-4 of scale.  Returns the
+    number of K5 launches."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (64, VAE_KW["input_length"]))
+    model = ConvVAE1D(**VAE_KW).eval()
+    ref_model = copy.deepcopy(model).double()
+    seed = vae_bundle.draw_seed(torch.Generator().manual_seed(1))
+    before = kernels.reparam_kl_sample.launches
+    out = []
+    for m, dt, d in ((model.to(dev), torch.float32, dev),
+                     (ref_model, torch.float64, "cpu")):
+        with torch.inference_mode():
+            xt = torch.as_tensor(x, dtype=dt, device=d)
+            x_rec, mu, lv = m(xt, seed=seed)
+            loss = beta_vae_loss(xt, x_rec, mu, lv, loss_type="cosine")[0]
+        out.append((x_rec.cpu(), loss.item()))
+    torch.cuda.synchronize()
+    launches = kernels.reparam_kl_sample.launches - before
+    (rec, loss), (rec_r, loss_r) = out
+    rec_err, loss_rel = rel_err(rec, rec_r), abs(loss - loss_r) / abs(loss_r)
+    print(json.dumps({"phase": "entry_sampled_forward", "k5_launches":
+                      launches, "x_rec_rel_err_of_scale": rec_err,
+                      "cosine_loss": loss, "cosine_loss_cpu_f64": loss_r,
+                      "loss_rel_err": loss_rel}), flush=True)
+    check(bool(torch.isfinite(rec).all())
+          and rec.shape == (64, VAE_KW["input_length"]),
+          "sampled entry forward: bad output")
+    check(rec_err <= 1e-4, f"sampled entry forward differs by {rec_err}")
+    check(loss_rel <= 1e-4, f"sampled entry loss differs by {loss_rel}")
+    return launches
+
+
+def to_cpu64(tree):
+    """A bundle or VAE-SIMCA model on the CPU in float64 (integers kept)."""
+    def conv(t):
+        t = t.detach().cpu()
+        return t.double() if t.is_floating_point() else t
+
+    fields = {f: conv(getattr(tree, f)) for f in tree._fields
+              if f != "state_dict"}
+    if "state_dict" in tree._fields:
+        fields["state_dict"] = {k: conv(v) for k, v in tree.state_dict.items()}
+    return type(tree)(**fields)
+
+
+def stats_rel_err(got, ref):
+    """max over the non-accept outputs of rel_err."""
+    return {k: rel_err(torch.as_tensor(got[k]), torch.as_tensor(ref[k]))
+            for k in ref if k != "accept"}
+
+
+def stacked_vs_single(model, x_multi):
+    """The 3-class stacked screen against 3 single-class scorers: identical
+    accepts and statistics within 1e-6 of scale (the same resident modules'
+    arithmetic class by class)."""
+    bundles, models = [], []
+    for c in range(3):
+        x_cal, _ = decision_workload(30 + c, DEC_N_CAL, 1, freq=3 + c)
+        _, _, b, vs = train_and_calibrate(x_cal, seed=10 + c)
+        bundles.append(b)
+        models.append(vs)
+    stacked = make_scorers(model, vae_bundle.stack_bundles(bundles),
+                           vae_bundle.stack_bundles(models), DEC_CHUNK)
+    singles = [make_scorers(model, b, vs, DEC_CHUNK)
+               for b, vs in zip(bundles, models)]
+    line = {"phase": "stacked_vs_single", "spectra": x_multi.shape[0]}
+    for label, scorer in stacked.items():
+        out = scorer.score(x_multi)
+        check(out["accept"].shape == (x_multi.shape[0], 3),
+              f"stacked {label}: accept shape {out['accept'].shape}")
+        worst, rates = 0.0, []
+        for c in range(3):
+            single = singles[c][label].score(x_multi)
+            col = {k: v[:, c] for k, v in out.items()}
+            check(np.array_equal(col["accept"], single["accept"]),
+                  f"stacked {label}: class {c} accepts differ from single")
+            worst = max([worst, *stats_rel_err(col, single).values()])
+            rates.append(accept_rate(single["accept"]))
+        line[label] = {"stats_rel_err": worst, "accept_rate": rates}
+        check(worst <= 1e-6, f"stacked {label}: statistics differ by {worst}")
+    print(json.dumps(line), flush=True)
+
+
+def card_vs_cpu_f64(model, trained, bundle, vs, x_cal, x_test):
+    """The card's f32 calibration and screens against the port's CPU f64
+    on the same trained bundle: thresholds and limits to 1e-3 (percentiles
+    and bisected chi^2 quantiles of f32 statistics), the statistics of a
+    4,096-spectrum screen (chunk 4,096 on both sides) to 1e-4 of scale
+    (f32 convolutions, 3 to 4 layers deep), accepts equal on >= 99.9 % of
+    spectra, >= 99 % for unpinned 'f', whose batch statistics (quirk Q3)
+    move its boundary."""
+    x_cal64, x64 = x_cal.astype(np.float64), x_test[:DEC_N_CPU].astype(
+        np.float64)
+    b64 = vae_decision.fit_thresholds(model, to_cpu64(trained), x_cal64,
+                                      loss_type="cosine")
+    vs64 = vaesimca.fit_vaesimca(model, b64, x_cal64)
+    lims = {f: (getattr(bundle, f), getattr(b64, f)) for f in
+            ("threshold", "threshold_q", "threshold_h", "threshold_f")}
+    lims.update({f: (getattr(vs, f), getattr(vs64, f)) for f in
+                 ("t2_limit", "q_limit", "d_limit")})
+    lim_err = {k: abs(float(a) - float(b)) / abs(float(b))
+               for k, (a, b) in lims.items()}
+    card = make_scorers(model, bundle, vs, DEC_N_CPU)
+    cpu = make_scorers(model, b64, vs64, DEC_N_CPU)
+    screens = {}
+    for label in card:
+        got, ref = card[label].score(x_test[:DEC_N_CPU]), cpu[label].score(x64)
+        screens[label] = {"stats_rel_err": stats_rel_err(got, ref),
+                          "accept_agreement": float(
+                              (got["accept"] == ref["accept"]).mean())}
+    print(json.dumps({"phase": "decision_vs_cpu_f64",
+                      "limit_rel_err": lim_err, "screens": screens}),
+          flush=True)
+    for k, e in lim_err.items():
+        check(e <= 1e-3, f"{k} differs from the CPU f64 fit by {e}")
+    for label, r in screens.items():
+        for k, e in r["stats_rel_err"].items():
+            check(e <= 1e-4, f"screen {label}: {k} differs from CPU f64 "
+                  f"by {e}")
+        floor = 0.99 if label == "f" else 0.999
+        check(r["accept_agreement"] >= floor, f"screen {label}: accept "
+              f"agreement {r['accept_agreement']} < {floor}")
+
+
+def time_sample(shape, gen, dev, bw, f32_rate):
+    """K5 and its twin on device, beside its bound: bytes 12 N k + 4 N,
+    operations K5_OPS_PER_PAIR per element pair at the f32 rate."""
+    n, k = shape
+    mu, lv = (torch.randn(2, n, k, generator=gen) * 0.8).to(dev)
+    eps = torch.randn(n, k, generator=gen).to(dev)
+    bytes_ms = 1e3 * (12 * n * k + 4 * n) / bw
+    ops_ms = 1e3 * K5_OPS_PER_PAIR * ((n * k + 1) // 2) / f32_rate
+    line = {"shape": shape,
+            "ms": device_ms(lambda: kernels.reparam_kl_sample(mu, lv, 1)),
+            "call_ms": median_ms(lambda: kernels.reparam_kl_sample(mu, lv, 1),
+                                 3, 21),
+            "plain_ms": device_ms(
+                lambda: kernels.reparam_kl_sample_plain(mu, lv, 1), 10),
+            # the two-launch alternative: torch's own normals, then K4
+            "randn_plus_k4_ms": device_ms(lambda: kernels.reparam_kl(
+                mu, lv, torch.randn(n, k, device=dev))),
+            "k4_given_eps_ms": device_ms(lambda: kernels.reparam_kl(
+                mu, lv, eps)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "library_reason": "no single PyTorch call draws the noise and "
+                              "forms z and the per-sample KL; torch.randn "
+                              "then K4 is two launches (randn_plus_k4_ms)"}
+    print(json.dumps({"phase": "reparam_sample_timing", **line}), flush=True)
+    return line
+
+
+def decision_phases(dev, card, bw, f32_rate):
+    """Phases 9-12, the decision slice; returns K5's kernel record."""
+    # 9. K5 against its plain twin: the calibration's shape, the screen's
+    #    width, and a ragged odd k whose element pairs straddle rows
+    gen = torch.Generator().manual_seed(5)
+    k5_err, big_eps = compare_sample((DEC_N_TEST, VAE_KW["latent_dim"]), gen, dev)
+    k5_err = max(k5_err, compare_sample((DEC_N_CAL, VAE_KW["latent_dim"]),
+                                        gen, dev)[0],
+                 compare_sample((300, 5), gen, dev)[0])
+    noise_statistics(big_eps)
+    del big_eps
+
+    # 10. the decision path, as a user calls it (numpy in, CUDA by
+    #     default), with K5's launches read after each step
+    x_cal, x_test = decision_workload(3, DEC_N_CAL, DEC_N_TEST)
+    kernels.reparam_kl_sample.launches = 0
+    model, trained, bundle, vs = train_and_calibrate(x_cal, seed=0)
+    torch.cuda.synchronize()
+    k5 = {"fit_thresholds": kernels.reparam_kl_sample.launches}
+    sampled = vae_decision.fit_thresholds(
+        model, trained, x_cal, loss_type="cosine",
+        rng=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    k5["fit_thresholds_sampled"] = kernels.reparam_kl_sample.launches \
+        - k5["fit_thresholds"]
+    scorers = make_scorers(model, bundle, vs, DEC_CHUNK)
+    before = kernels.reparam_kl_sample.launches
+    screens = {label: s.score(x_test) for label, s in scorers.items()}
+    k5["screens"] = kernels.reparam_kl_sample.launches - before
+    k5["entry_forward"] = entry_sampled_forward(dev)
+    k5_launches = kernels.reparam_kl_sample.launches
+    lims = {"threshold": bundle.threshold, "threshold_q": bundle.threshold_q,
+            "threshold_h": bundle.threshold_h,
+            "threshold_f": bundle.threshold_f,
+            "sampled_threshold": sampled.threshold,
+            "sampled_threshold_q": sampled.threshold_q,
+            "t2_limit": vs.t2_limit, "q_limit": vs.q_limit,
+            "d_limit": vs.d_limit}
+    print(json.dumps({"phase": "decision_main_path", "k5_launches": k5,
+                      "limits": {k: float(v) for k, v in lims.items()},
+                      "accept_rate": {k: accept_rate(v["accept"])
+                                      for k, v in screens.items()}}),
+          flush=True)
+    check(k5 == {"fit_thresholds": 0, "fit_thresholds_sampled": 1,
+                 "screens": 0, "entry_forward": 1}, f"K5 launches {k5}")
+    check_limits("decision", lims)
+    for label, out in screens.items():
+        for key, v in out.items():
+            check(v.shape == (DEC_N_TEST,), f"{label}: {key} shape {v.shape}")
+            check(bool(np.isfinite(v).all()), f"{label}: {key} not finite")
+    x_multi = np.concatenate([decision_workload(
+        40 + c, 1, DEC_N_MULTI // 3 + 1, freq=3 + c)[1]
+        for c in range(3)])[:DEC_N_MULTI]
+    stacked_vs_single(model, x_multi)
+
+    # 11. the card (f32) against the port's CPU f64, same trained bundle
+    card_vs_cpu_f64(model, trained, bundle, vs, x_cal, x_test)
+
+    # 12. decision timings
+    screen_ms = {label: median_ms(lambda s=s: s.score(x_test), 1, 3)
+                 for label, s in scorers.items()}
+    fit_ms = {
+        "fit_thresholds_ms": median_ms(lambda: vae_decision.fit_thresholds(
+            model, trained, x_cal, loss_type="cosine"), 1, 3),
+        "fit_thresholds_sampled_ms": median_ms(
+            lambda: vae_decision.fit_thresholds(
+                model, trained, x_cal, loss_type="cosine",
+                rng=torch.Generator().manual_seed(0)), 1, 3),
+        "fit_vaesimca_ms": median_ms(lambda: vaesimca.fit_vaesimca(
+            model, bundle, x_cal), 1, 3)}
+    # the price of cuDNN's deterministic algorithms (the package's
+    # setting), and what it buys: two runs of the same screen without it
+    with cudnn_nondeterministic():
+        nondet_ms = {label: median_ms(lambda s=scorers[label]: s.score(
+            x_test), 1, 3) for label in ("d2_q", "vaesimca")}
+        rerun = stats_rel_err(*(scorers["vaesimca"].score(x_test)
+                                for _ in range(2)))
+    print(json.dumps({"phase": "decision_timings", "card": card,
+                      "spectra": DEC_N_TEST, "chunk": DEC_CHUNK,
+                      "screen_ms": screen_ms,
+                      "screen_ms_cudnn_nondeterministic": nondet_ms,
+                      "vaesimca_rerun_rel_err_cudnn_nondeterministic": rerun,
+                      "spectra_per_s": {k: DEC_N_TEST / (v / 1e3)
+                                        for k, v in screen_ms.items()},
+                      **fit_ms}), flush=True)
+    # one vaesimca chunk: the profiler's breakdown, and its device time
+    # (chunks queued behind a GPU sleep) beside one decided and fetched
+    scorer = scorers["vaesimca"]
+    prepared = scorer.prepare(x_test[:DEC_CHUNK])
+    breakdown(lambda: scorer.score_prepared(prepared), reps=5,
+              phase="vaesimca_chunk_breakdown", unit="chunk")
+    chunk = {"device_ms": device_ms(lambda: scorer._decide(*prepared[0][0]),
+                                    5),
+             "call_ms": median_ms(lambda: scorer.score_prepared(prepared),
+                                  1, 5)}
+    with cudnn_nondeterministic():
+        chunk["device_ms_cudnn_nondeterministic"] = device_ms(
+            lambda: scorer._decide(*prepared[0][0]), 5)
+    pinned = scorers["f_pinned"]
+    print(json.dumps({"phase": "vaesimca_chunk_timing", "card": card,
+                      "chunk": DEC_CHUNK, **chunk,
+                      "f_pinned_chunk": pinned_f_split(
+                          pinned, pinned.prepare(x_test[:DEC_CHUNK]))}),
+          flush=True)
+    k5_t = {n: time_sample((n, VAE_KW["latent_dim"]), gen, dev, bw, f32_rate)
+            for n in (DEC_N_CAL, DEC_N_TEST)}
+    path = k5_t[DEC_N_CAL]
+    record = (
+        {"name": "reparam_kl_sample", "route": "cuda",
+         "source": "ocm_tpu_torch/csrc/reparam_sample.cu",
+         "replaces": "ocm_tpu/ops/kernels.py:160", "launches": k5_launches,
+         "max_abs_err": k5_err, "ms": path["ms"],
+         "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
+         "bound_by": path["bound_by"], "library_ms": None})
+    check(all(math.isfinite(v) for v in (*screen_ms.values(), *fit_ms.values(),
+                                         path["ms"], path["plain_ms"])),
+          "a decision timing is not finite")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -499,8 +982,12 @@ def main() -> int:
                       "torch": torch.__version__, "cuda": torch.version.cuda,
                       "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
                       "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                      "cudnn_deterministic":
+                          torch.backends.cudnn.deterministic,
                       "float32_matmul_precision":
                           torch.get_float32_matmul_precision()}), flush=True)
+    check(torch.backends.cudnn.deterministic,
+          "loading ocm_tpu_torch did not select cuDNN's deterministic mode")
 
     # 2. build
     t0 = time.perf_counter()
@@ -657,7 +1144,7 @@ def main() -> int:
     xb = torch.as_tensor(x_vae[:VAE_BATCH], device=dev)
     eps = torch.randn(VAE_BATCH, VAE_KW["latent_dim"], generator=gen).to(dev)
     train_step_ms = median_ms(lambda: step(xb, eps), 3, 21)
-    step_breakdown(lambda: step(xb, eps))
+    breakdown(lambda: step(xb, eps))
     t0 = time.perf_counter()
     vae_trainer.train_vae(ConvVAE1D(**VAE_KW), x_vae, x_vae[:VAE_BATCH], cfg,
                           seed=0)
@@ -706,6 +1193,8 @@ def main() -> int:
     check(all(math.isfinite(v) for v in (train_step_ms, train_vae_ms, k4_ms,
                                          *bn_t.values())),
           "a VAE timing is not finite")
+
+    records.append(decision_phases(dev, card, bw, f32_rate))
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

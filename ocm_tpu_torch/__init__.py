@@ -12,4 +12,15 @@ This package imports ``torch``, ``numpy`` and the standard library only:
 never ``jax`` and nothing of ``ocm_tpu``.  Entry points run on the CUDA
 device unless the caller passes ``device="cpu"`` or CPU tensors; with no
 GPU present they raise instead of falling back to the CPU.
+
+Loading the package selects cuDNN's deterministic algorithms for the
+process, as the reference's scripts do (``cudnn.deterministic = True``):
+a training run, a calibration or a screen is then a pure function of its
+inputs on a given card, and a stacked screen equals its single-class
+screens bit for bit.  The setting is made once here and never toggled, so
+threads that decide at the same time all see it.
 """
+
+import torch
+
+torch.backends.cudnn.deterministic = True

@@ -9,7 +9,8 @@ them.
 
 Training-mode BatchNorm + activation runs through ``fused_bn_act`` (kernels
 K2/K3 on the card) and the reparameterization through
-``fused_reparam_kl`` (K4); eval-mode BatchNorm normalises with the
+``fused_reparam_kl`` (K4), or, for a forward given a seed instead of
+noise, through ``reparam_kl_sample`` (K5, noise drawn in the kernel); eval-mode BatchNorm normalises with the
 running statistics in plain elementwise torch, as the JAX module does.
 BatchNorm follows flax, not ``nn.BatchNorm1d``: the running update is
 ``0.9 * running + 0.1 * batch`` with the biased fast variance.
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ocm_tpu_torch.ops.bn import apply_act, bn_act_normalize, fused_bn_act
-from ocm_tpu_torch.ops.kernels import fused_reparam_kl
+from ocm_tpu_torch.ops.kernels import fused_reparam_kl, reparam_kl_sample
 
 
 def conv_out_length(length: int, kernel_size: int, stride: int) -> int:
@@ -237,10 +238,19 @@ class ConvVAE1D(nn.Module):
             return x_rec[..., :self.input_length]
         return F.pad(x_rec, (0, self.input_length - out_len))
 
-    def forward(self, x, eps):
-        """(x_rec, mu, logvar), with the noise ``eps`` (B, latent_dim)."""
+    def forward(self, x, eps=None, seed=None):
+        """(x_rec, mu, logvar).  Pass exactly one of ``eps``, the noise
+        (B, latent_dim), reparameterized through K4/K6 as in training, or
+        ``seed``, an unsigned 64-bit integer from which kernel K5 draws the
+        noise itself (inference only: no gradient)."""
+        if (eps is None) == (seed is None):
+            raise ValueError("pass exactly one of eps (the noise) or seed "
+                             "(noise drawn in the kernel)")
         mu, logvar = self.encode(x)
-        z, _ = self.reparameterize(mu, logvar, eps)
+        if eps is not None:
+            z, _ = self.reparameterize(mu, logvar, eps)
+        else:
+            z, _ = reparam_kl_sample(mu, logvar, seed)
         return self.decode(z), mu, logvar
 
 

@@ -10,6 +10,13 @@
   and the per-sample KL (``ocm_tpu_torch/csrc/reparam_kl.cu``).
   ``fused_reparam_kl`` (``ocm_tpu/ops/kernels.py:192``) wraps it in a
   ``torch.autograd.Function`` with the analytic backward.
+- ``reparam_kl_sample`` is the port of ``reparam_loss_pallas`` with
+  ``eps=None`` (``ocm_tpu/ops/kernels.py:160-183``): the same function
+  with the noise drawn in the kernel, Philox4x32-10 bits through the TPU
+  kernel's Box-Muller (``ocm_tpu_torch/csrc/reparam_sample.cu``).  Its
+  plain twin (``philox4x32_plain``, ``philox_normal_plain``) reproduces the
+  kernel's bits in torch integer ops, so the twin is the same function,
+  not only the same distribution.
 
 Each CUDA source says what bounds its kernel on the card and how the
 design answers that.  On a CPU tensor a wrapper computes its plain twin
@@ -18,6 +25,8 @@ falls back.  ``<wrapper>.launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -163,3 +172,113 @@ class _FusedReparamKL(torch.autograd.Function):
 def fused_reparam_kl(mu, logvar, eps):
     """Differentiable ``reparam_kl``: returns (z, kl_per_sample)."""
     return _FusedReparamKL.apply(mu, logvar, eps)
+
+
+# Philox4x32-10 (Random123): round multipliers and key bumps
+_PHILOX_MUL = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_BUMP = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+_U64 = 2 ** 64
+
+
+def _mulhilo(a, m: int):
+    """(high, low) 32-bit words of ``a * m`` for int64 ``a`` in [0, 2^32)
+    and a 32-bit constant ``m``, with no int64 overflow: m is split into
+    16-bit halves, so every partial product stays below 2^48."""
+    t_lo, t_hi = a * (m & 0xFFFF), a * (m >> 16)
+    return ((t_hi + (t_lo >> 16)) >> 16,
+            (((t_hi & 0xFFFF) << 16) + t_lo) & _MASK32)
+
+
+def philox4x32_plain(counter, key):
+    """Philox4x32-10 of ``counter`` (..., 4) int64 words in [0, 2^32) under
+    ``key`` = (k0, k1), Python ints; returns (..., 4) int64 words."""
+    c0, c1, c2, c3 = counter.unbind(-1)
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_MUL[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_MUL[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_BUMP[0]) & _MASK32
+        k1 = (k1 + _PHILOX_BUMP[1]) & _MASK32
+    return torch.stack((c0, c1, c2, c3), -1)
+
+
+def _check_seed(seed, offset):
+    seed, offset = int(seed), int(offset)
+    if not (0 <= seed < _U64 and 0 <= offset < _U64):
+        raise ValueError(f"seed and offset are unsigned 64-bit integers; got "
+                         f"seed={seed}, offset={offset}")
+    return seed, offset
+
+
+def philox_normal_plain(n: int, k: int, seed: int, offset: int = 0,
+                        dtype=torch.float32, device="cpu"):
+    """The (n, k) standard normals kernel K5 draws for ``(seed, offset)``:
+    Philox4x32-10 with key ``seed`` and counter (element-pair index,
+    offset); words (w0, w1) of pair p make element 2p, (w2, w3) element
+    2p + 1 (elements in row-major order), each through the TPU kernel's
+    Box-Muller (``ocm_tpu/ops/kernels.py:169-174``)."""
+    seed, offset = _check_seed(seed, offset)
+    pairs = torch.arange((n * k + 1) // 2, dtype=torch.int64, device=device)
+    counter = torch.stack((pairs & _MASK32, pairs >> 32,
+                           torch.full_like(pairs, offset & _MASK32),
+                           torch.full_like(pairs, offset >> 32)), -1)
+    w = philox4x32_plain(counter, (seed & _MASK32, seed >> 32))
+    b1 = w[:, 0::2].reshape(-1)[:n * k]
+    b2 = w[:, 1::2].reshape(-1)[:n * k]
+    u1 = (b1 >> 8).to(dtype) * 2.0 ** -24 + 1e-7
+    u2 = (b2 >> 8).to(dtype) * 2.0 ** -24
+    eps = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    return eps.view(n, k)
+
+
+def reparam_kl_sample_plain(mu, logvar, seed: int, offset: int = 0):
+    """``reparam_kl_plain`` with the noise of ``philox_normal_plain``;
+    returns (z, kl, eps)."""
+    n, k = mu.shape
+    eps = philox_normal_plain(n, k, seed, offset, mu.dtype, mu.device)
+    return (*reparam_kl_plain(mu, logvar, eps), eps)
+
+
+def reparam_kl_sample(mu, logvar, seed: int, offset: int = 0,
+                      return_eps: bool = False):
+    """Reparameterize and per-sample KL of (N, k) ``mu``, ``logvar`` with
+    standard-normal noise drawn in the kernel from ``(seed, offset)``
+    (unsigned 64-bit); returns z (N, k), kl (N,) and, with ``return_eps``,
+    the noise.
+
+    CPU tensors: the plain twin.  CUDA tensors (float32, contiguous): the
+    hand-written kernel K5 on the current stream.  Inference only: the TPU
+    kernel's ``eps=None`` branch has no VJP, so this raises when grad is
+    enabled and an input requires it.
+    """
+    if torch.is_grad_enabled() and (mu.requires_grad or logvar.requires_grad):
+        raise RuntimeError(
+            "reparam_kl_sample draws its noise in the kernel and has no "
+            "gradient; call it under torch.no_grad() or "
+            "torch.inference_mode(), or pass eps to fused_reparam_kl")
+    seed, offset = _check_seed(seed, offset)
+    if mu.device.type == "cpu":
+        z, kl, eps = reparam_kl_sample_plain(mu, logvar, seed, offset)
+        return (z, kl, eps) if return_eps else (z, kl)
+    check_cuda_f32("reparam_kl_sample", {"mu": (mu, 2), "logvar": (logvar, 2)})
+    if logvar.shape != mu.shape:
+        raise ValueError(f"shape mismatch: mu {tuple(mu.shape)}, logvar "
+                         f"{tuple(logvar.shape)}")
+    n, k = mu.shape
+    z = torch.empty_like(mu)
+    kl = torch.zeros((n,), dtype=torch.float32, device=mu.device)
+    eps = torch.empty_like(mu) if return_eps else None
+    if n and k:
+        with torch.cuda.device(mu.device):
+            err = _build.library().reparam_kl_sample_f32(
+                mu.data_ptr(), logvar.data_ptr(), z.data_ptr(), kl.data_ptr(),
+                None if eps is None else eps.data_ptr(), n, k, seed, offset,
+                stream_of(mu))
+        _build.check(err, "reparam_kl_sample")
+        reparam_kl_sample.launches += 1
+    return (z, kl, eps) if return_eps else (z, kl)
+
+
+reparam_kl_sample.launches = 0

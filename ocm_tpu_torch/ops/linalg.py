@@ -171,6 +171,13 @@ def deflated_thetas(c, eigenvalues, eigvecs, n_components):
     return th1, th2, th3
 
 
+def mahalanobis_sq(x, mean, cov_inv):
+    """Row-wise squared Mahalanobis distance of ``x`` (..., N, k) to
+    ``mean`` (..., k) under ``cov_inv`` (..., k, k)."""
+    d = x - mean[..., None, :]
+    return ((d @ cov_inv) * d).sum(-1)
+
+
 def t2_q_scores(x, mean, components, invcovT):
     """Hotelling T^2 and Q residual for rows of ``x`` against one PCA model.
 

@@ -1,0 +1,266 @@
+"""Deployment-side scoring: resident models over fixed-size chunks (port of
+``ocm_tpu/serving.py``'s chunk machinery and ``VAEScorer``).
+
+``VAEScorer`` keeps one eval-mode module per class resident on the
+bundle's device (``bundle.bind``, built once) and screens spectra in chunks
+of ``chunk_size``: each chunk is padded to that size by repeating its last
+row (so batch statistics -- variant 'f', quirk Q3 -- see the padded batch
+that ``ocm_tpu`` sees), copied to the device, decided under
+``torch.inference_mode()``, fetched, and cut back to its real rows.
+The convolutions run with cuDNN's deterministic algorithms, which the
+package selects for the process when it loads (``ocm_tpu_torch``'s
+``__init__``): with the card's default transposed convolutions a rerun of
+the same 'vaesimca' chunk moved its Q by ~1e-6 of its scale
+(``chip_smoke.py``).  Deterministic, a screen is a pure function of its
+input, and a stacked screen equals its single-class screens bit for bit,
+also with scorers deciding in several threads at once.
+
+``SIMCAScorer`` (bf16/int8 storage, raw ingest) comes with ROADMAP.md
+queue 1 item 8; sharding chunks over a mesh with item 14.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from ocm_tpu_torch.models import vae_decision as D
+from ocm_tpu_torch.models.bundle import (OCMBundle, bind, class_slice,
+                                         decode, encode, standardize)
+from ocm_tpu_torch.models.vae import ConvVAE1D
+from ocm_tpu_torch.models.vaesimca import predict_vaesimca
+from ocm_tpu_torch.stats.qhf import qhf_batch_host
+
+
+def _pad_chunk(chunk: np.ndarray, size: int):
+    n = chunk.shape[0]
+    if n == size:
+        return chunk, n
+    out = np.zeros((size, chunk.shape[1]), chunk.dtype)
+    out[:n] = chunk
+    out[n:] = chunk[-1] if n else 0.0
+    return out, n
+
+
+class _ChunkedScorer:
+    """Shared machinery: fixed-size chunks, ragged tails padded.
+
+    ``decide_fn(chunk_tensor) -> {name: tensor}`` runs on ``device``;
+    ``post_fn`` is a host epilogue on the fetched numpy dict, applied
+    before the pad rows are cut.
+    """
+
+    def __init__(self, decide_fn, device, dtype, chunk_size: int = 8192,
+                 mesh=None, post_fn=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (chunks sharded over devices) comes with the "
+                "torch.distributed slice, ROADMAP.md queue 1 item 14")
+        self.chunk_size = int(chunk_size)
+        self._fn, self._post = decide_fn, post_fn
+        self._device, self._dtype = device, dtype
+
+    def _fetch(self, res, n: int) -> dict:
+        out = {k: v.cpu().numpy() for k, v in res.items()}
+        if self._post is not None:
+            out = self._post(out)
+        return {k: a[:n] for k, a in out.items()}
+
+    def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
+        return (torch.as_tensor(chunk, dtype=self._dtype,
+                                device=self._device),)
+
+    def _decide(self, *args):
+        with torch.inference_mode():
+            return self._fn(*args)
+
+    def _prep(self, x, start):
+        chunk, n = _pad_chunk(x[start:start + self.chunk_size],
+                              self.chunk_size)
+        return self._prepare_chunk(chunk), n
+
+    def prepare(self, x) -> list:
+        """Ingest once, score many: pad and place every chunk on the device
+        now and return the list; ``score_prepared`` then only decides.  All
+        chunks are resident at once; for a one-shot screen larger than the
+        device memory use ``score``."""
+        x = np.asarray(x)
+        return [self._prep(x, s) for s in range(0, x.shape[0], self.chunk_size)]
+
+    def score_prepared(self, prepared: list) -> dict:
+        outs = [self._fetch(self._decide(*args), n) for args, n in prepared]
+        if not outs:
+            return {}
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+    def score(self, x, prefetch: int = 1) -> dict:
+        """Score an (N, L) array in fixed-size chunks; returns a dict of
+        numpy arrays ('accept' plus the variant's statistics).
+
+        Device residency stays O((2 + prefetch) * chunk_size).  With
+        ``prefetch`` > 0 a worker thread pads and copies the next chunks
+        to the device while the current one is decided (kernels are
+        enqueued asynchronously; the fetch waits); 0 runs sequentially.
+        A single chunk never starts the worker.
+        """
+        x = np.asarray(x)
+        starts = list(range(0, x.shape[0], self.chunk_size))
+        outs: list = []
+        if prefetch <= 0 or len(starts) <= 1:
+            for start in starts:
+                args, n = self._prep(x, start)
+                outs.append(self._fetch(self._decide(*args), n))
+        else:
+            from collections import deque
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=1) as ex:
+                it = iter(starts)
+                # range first: zip(it, range) would drop one start from it
+                pending = deque(ex.submit(self._prep, x, s) for _, s in
+                                zip(range(1 + prefetch), it))
+                while pending:
+                    args, n = pending.popleft().result()
+                    res = self._decide(*args)
+                    nxt = next(it, None)
+                    if nxt is not None:
+                        pending.append(ex.submit(self._prep, x, nxt))
+                    outs.append(self._fetch(res, n))
+        if not outs:
+            return {}
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+    def score_stream(self, chunks: Iterable) -> Iterator[dict]:
+        """One result dict per array of an iterable (e.g. camera frames)."""
+        for chunk in chunks:
+            yield self.score(chunk)
+
+
+class VAEScorer(_ChunkedScorer):
+    """Resident VAE one-class scorer over an ``OCMBundle``, single or
+    multi-class.
+
+    ``variant``: 'd2' | 'd2_q' | 'f' | 'full' (variants 2-4) or 'vaesimca'
+    (variant 5, with the fitted ``vaesimca_model``).  A stacked bundle
+    (``bundle.stack_bundles``) screens every class of a chunk in one call,
+    class after class on their resident modules; outputs then carry a
+    trailing class axis (N, C), and a 'vaesimca' model must be stacked over
+    the same classes.  Each class's numbers are a single scorer's.
+
+    ``pin_f_stats`` (variant 'f' only): the device runs the network and
+    ships its outputs; the quirk-Q3 batch statistics run on the host in
+    numpy float64 (``stats.qhf.qhf_batch_host``), so decisions are a pure
+    function of the network outputs.
+
+    The chunks go to the bundle's device in the bundle's dtype.
+    ``compute_dtype`` (a bf16 serving twin) comes with ROADMAP.md queue 1
+    item 8, ``mesh`` with item 14.
+    """
+
+    def __init__(self, model: ConvVAE1D, bundle: OCMBundle,
+                 variant: str = "d2", loss_type: str = "cosine",
+                 chunk_size: int = 8192, mesh=None, vaesimca_model=None,
+                 decision_type: str = "alt", compute_dtype=None,
+                 pin_f_stats: bool = False):
+        if pin_f_stats and variant != "f":
+            raise ValueError(
+                "pin_f_stats applies only to variant='f' (the quirk-Q3 "
+                f"batch statistics); got variant={variant!r}")
+        if compute_dtype is not None:
+            raise NotImplementedError(
+                "compute_dtype= (a reduced-precision serving twin) comes "
+                "with ROADMAP.md queue 1 item 8")
+        # a stacked bundle has a class axis on every leaf; key the
+        # detection on latent_mean ((k,) or (C, k)), so a single-class
+        # bundle with a (1,)-shaped threshold stays single-class
+        self._multiclass = bundle.latent_mean.dim() == 2
+        if self._multiclass and (
+                bundle.threshold.dim() != 1
+                or bundle.threshold.shape[0] != bundle.latent_mean.shape[0]):
+            raise ValueError(
+                "stacked bundle is inconsistent: latent_mean has a class "
+                f"axis of {bundle.latent_mean.shape[0]} but threshold has "
+                f"shape {tuple(bundle.threshold.shape)} — build stacked "
+                "bundles with models.bundle.stack_bundles")
+        n_cls = bundle.latent_mean.shape[0] if self._multiclass else 1
+        bundles = ([class_slice(bundle, c) for c in range(n_cls)]
+                   if self._multiclass else [bundle])
+        post = None
+        if variant == "vaesimca":
+            if vaesimca_model is None:
+                raise ValueError(
+                    "variant='vaesimca' needs vaesimca_model from "
+                    "ocm_tpu_torch.models.vaesimca.fit_vaesimca")
+            if self._multiclass:
+                if (vaesimca_model.d_limit.dim() != 1
+                        or vaesimca_model.d_limit.shape[0] != n_cls):
+                    raise ValueError(
+                        "stacked bundle needs a vaesimca_model stacked over "
+                        f"the same {n_cls} classes (stack_bundles)")
+                vms = [class_slice(vaesimca_model, c) for c in range(n_cls)]
+            else:
+                vms = [vaesimca_model]
+
+            def decide_one(m, b, vm, xc):
+                accept, t2, q = predict_vaesimca(m, b, vm, xc, decision_type)
+                return {"accept": accept, "t2": t2, "q": q}
+        elif variant == "d2":
+            def decide_one(m, b, vm, xc):
+                return D.decide_d2(m, b, xc)._asdict()
+        elif variant == "d2_q":
+            def decide_one(m, b, vm, xc):
+                return D.decide_d2_q(m, b, xc, loss_type)._asdict()
+        elif variant == "f" and pin_f_stats:
+            def decide_one(m, b, vm, xc):
+                mu, _ = encode(m, b, xc)
+                x_rec = decode(m, b, mu)
+                return {"x_std": standardize(b, xc),
+                        "r_std": standardize(b, x_rec), "mu": mu}
+
+            thr = [float(b.threshold_f) for b in bundles]
+
+            def post(d):
+                cols = [qhf_batch_host(*(d[k][:, c] if self._multiclass
+                                         else d[k]
+                                         for k in ("x_std", "r_std", "mu")))
+                        for c in range(n_cls)]
+                out = {"accept": [f <= t for (_, _, f), t in zip(cols, thr)],
+                       "d2": [h for _, h, _ in cols],
+                       "q": [q for q, _, _ in cols]}
+                if self._multiclass:
+                    return {k: np.stack(v, axis=1) for k, v in out.items()}
+                return {k: v[0] for k, v in out.items()}
+        elif variant == "f":
+            def decide_one(m, b, vm, xc):
+                return D.decide_f(m, b, xc)._asdict()
+        elif variant == "full":
+            def decide_one(m, b, vm, xc):
+                return D.decide_full_distance(m, b, xc)._asdict()
+        else:
+            raise ValueError(f"unknown variant {variant!r}; expected "
+                             "d2|d2_q|f|full|vaesimca")
+        if variant != "vaesimca":
+            vms = [None] * n_cls
+        self.modules = [bind(model, b) for b in bundles]
+        classes = list(zip(self.modules, bundles, vms))
+
+        def decide(xc):
+            outs = [decide_one(m, b, vm, xc) for m, b, vm in classes]
+            if self._multiclass:
+                return {k: torch.stack([o[k] for o in outs], 1)
+                        for k in outs[0]}
+            return outs[0]
+
+        super().__init__(decide, bundle.spec_mean.device,
+                         bundle.spec_mean.dtype, chunk_size, mesh,
+                         post_fn=post)
+
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, model: ConvVAE1D, **kwargs):
+        """Serving a reference ``.pth`` directly comes with the port of
+        ``torch_import``, ROADMAP.md queue 1 item 15."""
+        raise NotImplementedError(
+            "VAEScorer.from_torch_checkpoint comes with the port of "
+            "models/torch_import.py, ROADMAP.md queue 1 item 15")

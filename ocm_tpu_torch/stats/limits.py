@@ -56,8 +56,10 @@ def _chi2pom(values, cl):
     return LimitResult(scale * chi2_ppf(cl, dof) / dof, dof, scale)
 
 
-def _percentile(values, cl):
-    return torch.quantile(values, cl, dim=-1, interpolation="linear")
+def quantile(values, q):
+    """The q-quantile over the last axis, linearly interpolated
+    (``jnp.percentile(values, 100 q)``)."""
+    return torch.quantile(values, q, dim=-1, interpolation="linear")
 
 
 def t2_limit(t2, n_components, method: str = "Fdist", cl: float = 0.95,
@@ -71,7 +73,7 @@ def t2_limit(t2, n_components, method: str = "Fdist", cl: float = 0.95,
     k = torch.as_tensor(n_components, **kw).expand(shape)
 
     if method == "perc":
-        return _ones(_percentile(t2, cl))
+        return _ones(quantile(t2, cl))
     if method == "Fdistrig":
         fval = f_ppf(cl, k, n - k)
         return _ones((k / n) * (n * n - 1.0) / (n - k) * fval)
@@ -106,7 +108,7 @@ def q_limit(q, method: str = "jm", cl: float = 0.95, thetas=None) -> LimitResult
     if method not in Q_METHODS:
         raise ValueError(f"unknown q limit method {method!r}")
     if method == "perc":
-        return _ones(_percentile(q, cl))
+        return _ones(quantile(q, cl))
     if method == "jm":
         return _ones(jm_limit(thetas, cl))
     if method == "chi2box":

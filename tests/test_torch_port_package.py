@@ -16,7 +16,9 @@ import torch
 from ocm_tpu_torch.models import simca as TS
 from ocm_tpu_torch.models import trainer as TT
 from ocm_tpu_torch.models import vae as TV
+from ocm_tpu_torch.models import vae_decision, vaesimca
 from ocm_tpu_torch.ops import bn, kernels
+from ocm_tpu_torch.stats import metrics
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ocm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -26,7 +28,10 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, ocm_tpu_torch, ocm_tpu_torch.models.simca, "
             "ocm_tpu_torch.ops.kernels, ocm_tpu_torch.ops._build, "
             "ocm_tpu_torch.ops.bn, ocm_tpu_torch.models.vae, "
-            "ocm_tpu_torch.models.bundle, ocm_tpu_torch.models.trainer; "
+            "ocm_tpu_torch.models.bundle, ocm_tpu_torch.models.trainer, "
+            "ocm_tpu_torch.models.vae_decision, ocm_tpu_torch.models.vaesimca, "
+            "ocm_tpu_torch.serving, ocm_tpu_torch.stats.qhf, "
+            "ocm_tpu_torch.stats.metrics; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'ocm_tpu' or m.startswith('ocm_tpu.')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -63,6 +68,12 @@ def test_numpy_input_without_device_needs_cuda():
         TT.train_vae(TV.ConvVAE1D(12, 2, conv_blocks=1, n_filters=4,
                                   hidden_fc=8), x, x[:4],
                      TT.TrainConfig(epochs=1), seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vaesimca.vaesimca_model_from_numpy({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vae_decision.compute_rec_error(x, x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        metrics.roc_auc(x[:, 0] > 0, x[:, 1])
 
 
 def test_cpu_wrapper_does_not_count_launches():
@@ -93,12 +104,33 @@ def test_cpu_vae_wrappers_do_not_count_launches():
     assert out.shape == x.shape and mean.shape == var.shape == (3,)
 
 
+def test_cpu_sample_wrapper_counts_no_launch_and_refuses_grad():
+    gen = torch.Generator().manual_seed(0)
+    mu, lv = torch.randn(2, 6, 3, generator=gen)
+    before = kernels.reparam_kl_sample.launches
+    z, kl = kernels.reparam_kl_sample(mu, lv, seed=5)
+    assert kernels.reparam_kl_sample.launches == before
+    assert z.shape == (6, 3) and kl.shape == (6,)
+    m = mu.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        kernels.reparam_kl_sample(m, lv, seed=5)
+    with torch.no_grad():
+        torch.testing.assert_close(kernels.reparam_kl_sample(m, lv, 5)[0], z)
+    with pytest.raises(ValueError, match="64-bit"):
+        kernels.reparam_kl_sample(mu, lv, seed=-1)
+    with pytest.raises(ValueError, match="exactly one"):
+        TV.ConvVAE1D(12, 2, conv_blocks=1, n_filters=4, hidden_fc=8)(
+            torch.zeros(2, 12))
+
+
 def test_non_cpu_non_cuda_tensor_raises():
     x = torch.zeros(4, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.t2q_scores_multiclass(x, x[:1], x[None, :1], x[None, :1, :1])
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.reparam_kl(x, x, x)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.reparam_kl_sample(x, x, 0)
     x3, c = torch.zeros(2, 4, 8, device="meta"), torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         bn.bn_act_fwd(x3, c, c)
@@ -217,3 +249,36 @@ def test_vae_kernels_reject_float64(cuda):
         bn.bn_act_fwd(x, c, c)
     with pytest.raises(TypeError, match="float32"):
         kernels.reparam_kl(x[0], x[0], x[0])
+    with pytest.raises(TypeError, match="float32"):
+        kernels.reparam_kl_sample(x[0], x[0], 0)
+
+
+# (N, k): the calibration's latent shape, ragged rows with k odd (element
+# pairs straddle rows), k above 32, one element
+SAMPLE_CASES = [(512, 16), (300, 5), (7, 40), (1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SAMPLE_CASES, ids=str)
+def test_reparam_sample_kernel_matches_plain_twin(cuda, shape):
+    gen = torch.Generator().manual_seed(2)
+    mu, lv = (torch.randn(2, *shape, generator=gen) * 0.8).to(cuda)
+    seed, offset = 0x1234_5678_9ABC_DEF0, 3
+    before = kernels.reparam_kl_sample.launches
+    z, kl, eps = kernels.reparam_kl_sample(mu, lv, seed, offset,
+                                           return_eps=True)
+    torch.cuda.synchronize()
+    assert kernels.reparam_kl_sample.launches == before + 1
+    z_p, kl_p, eps_p = kernels.reparam_kl_sample_plain(mu, lv, seed, offset)
+    # the same bits on both sides; f32 log/cos/exp of the device library
+    # against torch's differ by a few ulp
+    torch.testing.assert_close(eps, eps_p, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(z, z_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(kl, kl_p, rtol=1e-5, atol=1e-5)
+    z2, kl2 = kernels.reparam_kl_sample(mu, lv, seed, offset)
+    assert torch.equal(z2, z) and torch.equal(kl2, kl)
+    if mu.numel() > 1:
+        assert not torch.equal(kernels.reparam_kl_sample(mu, lv, seed + 1,
+                                                         offset)[0], z)
+        assert not torch.equal(kernels.reparam_kl_sample(mu, lv, seed,
+                                                         offset + 1)[0], z)

@@ -188,6 +188,7 @@ def test_bundle_functions_match_jax():
     tb = TBd.new_bundle(TV.vae_state_dict_from_numpy(params, stats, model),
                         torch.tensor(mean), torch.tensor(std),
                         VAE_SMALL["latent_dim"])
+    before = {k: v.clone() for k, v in model.state_dict().items()}
     rec_r, mu_r = JBd.reconstruct(jmodel, jb, jnp.asarray(x))
     rec, mu = TBd.reconstruct(model, tb, x)
     _close(mu, mu_r, "mu")
@@ -196,11 +197,20 @@ def test_bundle_functions_match_jax():
     # JAX's bundle.forward draws its own noise: compare with explicit eps
     x_rec_std, _, _ = jmodel.apply(JBd._variables(jb), JBd.standardize(
         jb, jnp.asarray(x)), jnp.asarray(eps), False, method=_jax_fwd)
-    _close(TBd.forward(model, tb, x, eps)[0],
+    _close(TBd.forward(model, tb, x, eps=eps)[0],
            JBd.unstandardize(jb, x_rec_std), "forward")
     for t in ("latent_mean", "latent_cov_inv", "threshold", "threshold_q"):
         _close(getattr(tb, t), getattr(jb, t), t)
     _close(TBd.unstandardize(tb, TBd.standardize(tb, x)), x, "round trip")
+    # the bundle functions run on a bound copy under inference mode: no
+    # graph is kept, and the caller's module is neither reloaded nor
+    # switched to eval mode
+    outs = (*TBd.encode(model, tb, x), TBd.decode(model, tb, mu),
+            *TBd.forward(model, tb, x, eps=eps), rec)
+    assert all(torch.is_inference(o) and not o.requires_grad for o in outs)
+    assert model.training
+    for key, val in model.state_dict().items():
+        assert torch.equal(val, before[key]), key
 
 
 def test_dropout_draws_from_the_model_generator():

@@ -50,6 +50,52 @@ def vae_spectra(n, length, seed=2):
             + rng.normal(0, .02, (n, length)))
 
 
+def vae_classes(n_classes, n_cal=60, n_test_per=30, seed=7):
+    """The VAE decision tests' data, f64: per class ``n_cal`` calibration
+    spectra (``class_spectra`` at VAE_SMALL's length, each class shifted),
+    and a test set of ``n_test_per`` fresh spectra of each of
+    ``n_classes + 1`` classes (the last one no model's)."""
+    rng = np.random.default_rng(seed)
+    length = VAE_SMALL["input_length"]
+    cals = [class_spectra(rng, c, n_cal, length) for c in range(n_classes)]
+    test = np.concatenate([class_spectra(rng, c, n_test_per, length)
+                           for c in range(n_classes + 1)])
+    return cals, test
+
+
+def vae_bundle_pair(x_cal, key=0, bn_seed=5):
+    """One class's untrained bundle in both packages: the JAX small model
+    (f64) and its bundle from ``init_vae(key)`` with random BatchNorm
+    statistics and ``x_cal``'s spectral statistics, and the port's model
+    and bundle carried across by ``ocm_bundle_from_numpy`` (CPU, f64).
+    Returns (jax_model, jax_bundle, port_model, port_bundle)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ocm_tpu.models import bundle as JBd
+    from ocm_tpu.models import vae as JV
+    from ocm_tpu_torch.models import bundle as TBd
+    from ocm_tpu_torch.models import vae as TV
+
+    jmodel = JV.ConvVAE1D(**VAE_SMALL, dtype=jnp.float64)
+    params, stats = JV.init_vae(jmodel, jax.random.key(key))
+    f64 = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)
+    params, stats = perturb_bn(f64(params), f64(stats), bn_seed)
+    mean, std = JBd.spectral_stats(x_cal)
+    jb = JBd.new_bundle(params, stats, jnp.asarray(mean), jnp.asarray(std),
+                        VAE_SMALL["latent_dim"])
+    tmodel = TV.ConvVAE1D(**VAE_SMALL).double()
+    tb = TBd.ocm_bundle_from_numpy(bundle_as_numpy(jb), tmodel, device="cpu")
+    return jmodel, jb, tmodel, tb
+
+
+def bundle_as_numpy(tree):
+    """A JAX NamedTuple pytree (bundle or VAESIMCAModel) with numpy leaves."""
+    import jax
+
+    return type(tree)(*jax.tree.map(np.asarray, tuple(tree)))
+
+
 def perturb_bn(params, batch_stats, seed=5):
     """Random BatchNorm scale/bias and running stats (numpy trees), so that
     a test exercises where each of them goes."""
