@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at full width and holds every hand-written
+Drives the port's four paths at full width and holds every hand-written
 CUDA kernel against its plain PyTorch twin:
 
 - SIMCA (first slice): a batched 3-class fit (3 x 700 x 500, k = 10,
@@ -18,7 +18,14 @@ CUDA kernel against its plain PyTorch twin:
   thresholds deterministic and with the reference's sampled forward
   (kernel K5, noise drawn in the kernel), ``fit_vaesimca``, and a resident
   ``VAEScorer`` screening 65,536 spectra in chunks of 16,384 with every
-  decision variant, single- and 3-class.
+  decision variant, single- and 3-class;
+- SIMCA serving (fourth slice): ``bench.py``'s 3-class models screening
+  98,304 spectra through a resident ``SIMCAScorer`` in chunks of 65,536
+  at every storage width (f32, bf16 residuals through K1's bf16
+  instantiation, int8 residuals through the exact int8 product K8, raw
+  uint16 counts preprocessed on the card), the streaming moments fit, the
+  bf16 ``VAEScorer`` twin, and the int8 probe (K7 and K8 at its headline
+  shapes).
 
 Phases, each of which exits non-zero on failure:
 
@@ -51,7 +58,20 @@ Phases, each of which exits non-zero on failure:
 12. decision timings: each screen, the calibration fits, a torch.profiler
    breakdown of one ``vaesimca`` chunk, the cost of cuDNN's deterministic
    mode, where a chunk of pinned 'f' spends its time, and K5 beside its
-   bound and twin.
+   bound and twin;
+13. K7 and K8 against their twins by integer equality (the probe's shapes
+   and tiles, the scoring shape, ragged shapes), bf16 K1 at the serving
+   shape and an odd L;
+14. the serving path as a user calls it (numpy in, numpy out): the four
+   modes' screens with exact launch counts (2 K1 for f32 and raw, 2 bf16
+   K1, 2 K8 and no K1 for int8), the probe's scan (3 K7, 3 K8), the
+   single-class scorer, agreement between the modes, prepared and
+   sequential screens bit-equal, the streaming fit against
+   ``fit_classes``, and the bf16 VAE twin against its f32 screens;
+15. the card's f32 and int8 screens against the port's CPU f64;
+16. serving timings: each mode's screen, its host prep + H2D against its
+   device decision + fetch, the streaming ingest and fit, and K7, K8 and
+   bf16 K1 beside their bounds, twins and library calls.
 
 Prints a JSON line with every kernel's record, the card's ``nvidia-smi``
 name and power limit, and as its last line
@@ -76,15 +96,19 @@ import torch
 import torch.nn.functional as F
 
 from ocm_tpu_torch.models import bundle as vae_bundle
+from ocm_tpu_torch.models import streaming
 from ocm_tpu_torch.models import trainer as vae_trainer
 from ocm_tpu_torch.models import vae_decision, vaesimca
-from ocm_tpu_torch.models.simca import fit_simca, predict_classes
+from ocm_tpu_torch.models.simca import (SIMCAModel, fit_classes, fit_simca,
+                                        predict_classes)
 from ocm_tpu_torch.models.vae import BatchNormAct, ConvVAE1D, beta_vae_loss
 from ocm_tpu_torch.ops import _build, bn, kernels
 from ocm_tpu_torch.ops.linalg import default_omega
-from ocm_tpu_torch.serving import VAEScorer
+from ocm_tpu_torch.ops.preprocess import snv_savgol
+from ocm_tpu_torch.probes import int8 as int8_probe
+from ocm_tpu_torch.serving import SIMCAScorer, VAEScorer
 from ocm_tpu_torch.stats import metrics
-from ocm_tpu_torch.stats.limits import reduced_distance, t2_limit
+from ocm_tpu_torch.stats.limits import LimitResult, reduced_distance, t2_limit
 
 N_CAL, LENGTH, N_CLASSES, N_SCORE, K = 700, 500, 3, 98304, 10
 SEED = 0
@@ -106,10 +130,19 @@ DEC_N_CAL, DEC_N_TEST, DEC_CHUNK, DEC_EPOCHS = 512, 65536, 16384, 3
 DEC_N_MULTI, DEC_N_CPU = 16384, 4096
 VARIANTS = (("d2", {}), ("d2_q", {}), ("f", {}), ("f_pinned",
             {"pin_f_stats": True}), ("full", {}), ("vaesimca", {}))
-# (bytes/s, f32 FLOP/s outside the tensor cores): NVIDIA data sheets,
-# dense, at the full power limit
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
+# the serving slice: bench.py's models screening 3 x 24,576 fresh class
+# draws and 24,576 off-class spectra in chunks of 65,536
+# (examples/hsi_pipeline.py's default); calibration batches of 300 for the
+# streaming fit; the int8 probe's tiles
+SRV_PER_CLASS, SRV_CHUNK, SRV_N_CPU, SRV_BATCH = 24576, 65536, 4096, 300
+PROBE_TILES = (512, 1024, 2048)
+SRV_MODES = ("f32", "bf16", "int8", "raw-u16")
+# (bytes/s, f32 FLOP/s outside the tensor cores, int8 tensor-core OP/s):
+# NVIDIA data sheets, dense (the int8 sheets' sparse figures halved), at
+# the full power limit
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12),
+         "H100 NVL": (3.9e12, 60e12, 1671e12),
+         "H200": (4.8e12, 67e12, 1979e12), "H100": (3.35e12, 67e12, 1979e12)}
 
 
 def make_data(seed=SEED, n_cal=N_CAL, length=LENGTH, n_classes=N_CLASSES,
@@ -961,7 +994,486 @@ def decision_phases(dev, card, bw, f32_rate):
     check(all(math.isfinite(v) for v in (*screen_ms.values(), *fit_ms.values(),
                                          path["ms"], path["plain_ms"])),
           "a decision timing is not finite")
-    return record
+    return record, (model, bundle, vs, x_test, screens)
+
+
+# --- the serving slice ------------------------------------------------------
+
+def serving_data(seed=5, n=SRV_PER_CLASS, length=LENGTH):
+    """The screened set, f64: ``n`` fresh draws of each class's recipe
+    (``make_data``'s), then ``n`` of bench.py's off-class recipe, so that
+    the accept matrices hold both decisions."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 1, length)
+    parts = []
+    for c in range(N_CLASSES):
+        base = np.sin(2 * np.pi * (3 + c) * t) + 0.3 * c
+        parts.append(rng.normal(1.0, 0.08, (n, 1)) * base
+                     + rng.normal(0, 0.02, (n, length)))
+    parts.append(rng.normal(0, 1, (n, length)) + np.sin(2 * np.pi * 3 * t))
+    return np.concatenate(parts)
+
+
+def camera_counts(x):
+    """uint16 camera counts of spectra ``x`` (the raw-ingest mode's input)."""
+    return np.clip(np.round(5000.0 * (x + 6.0)), 0, 65535).astype(np.uint16)
+
+
+def prep_raw(x):
+    """The raw-ingest scorer's preprocess_fn: SNV then SavGol(5, 2, 1)."""
+    return snv_savgol(x, 5, 2, 1)
+
+
+def launch_counts():
+    return {"k1_f32": kernels.t2q_scores_multiclass.launches,
+            "k1_bf16": kernels.t2q_scores_multiclass.launches_bf16,
+            "k7": kernels.int8_tile_sum.launches,
+            "k8": kernels.int8_gemm_s32.launches}
+
+
+def zero_launch_counts():
+    kernels.t2q_scores_multiclass.launches = 0
+    kernels.t2q_scores_multiclass.launches_bf16 = 0
+    kernels.int8_tile_sum.launches = kernels.int8_gemm_s32.launches = 0
+
+
+def class_model(models, c):
+    """Class ``c`` of a stacked SIMCA model."""
+    return SIMCAModel(*(LimitResult(*(a[c] for a in v))
+                        if isinstance(v, LimitResult) else v[c]
+                        for v in models))
+
+
+def agreement(got, ref):
+    """(accept agreement, max |dred - dred_ref| / max |dred_ref|)."""
+    return (float(np.mean(got["accept"] == ref["accept"])),
+            float(np.abs(got["dred"] - ref["dred"]).max()
+                  / np.abs(ref["dred"]).max()))
+
+
+def int8_vs_plain(xq, w, gen, dev):
+    """Phase 13, int8 part: K7 and K8 (tile sums) at the probe's shapes and
+    a ragged one, K8 (the stored product) at the scoring shape, a ragged
+    one and 7 columns; integer equality. Returns the max abs error (0)."""
+    def rand(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8,
+                             generator=gen).to(dev)
+
+    cases = [(xq, w, t) for t in PROBE_TILES] + [
+        (rand(1000, 203), rand(128, 203), 8)]
+    err, lines = 0, []
+    for x, ww, tile in cases:
+        k7 = kernels.int8_tile_sum(x, tile)
+        k8 = kernels.int8_gemm_s32(x, ww, tile)
+        torch.cuda.synchronize()
+        e7 = (k7.long() - kernels.int8_tile_sum_plain(x, tile).long()
+              ).abs().max().item()
+        e8 = (k8.long() - kernels.int8_gemm_s32_plain(x, ww, tile).long()
+              ).abs().max().item()
+        lines.append({"shape": tuple(x.shape), "tile": tile,
+                      "k7_max_abs_err": e7, "k8_max_abs_err": e8})
+        check(e7 == 0 and e8 == 0, f"K7/K8 at {tuple(x.shape)} tile {tile}: "
+              f"errors {e7}, {e8}")
+        err = max(err, e7, e8)
+    m = 2 * (N_CLASSES * K + N_CLASSES)
+    for n, length, cols in ((SRV_CHUNK, LENGTH, m), (1001, 203, m),
+                            (4097, LENGTH, 7)):
+        x, ww = rand(n, length), rand(cols, length)
+        got = kernels.int8_gemm_s32(x, ww)
+        torch.cuda.synchronize()
+        e8 = (got.long() - kernels.int8_gemm_s32_plain(x, ww).long()
+              ).abs().max().item()
+        lines.append({"shape": (n, length, cols), "store": True,
+                      "k8_max_abs_err": e8})
+        check(e8 == 0 and got.shape == (n, cols),
+              f"K8 store at {(n, length, cols)}: error {e8}")
+    print(json.dumps({"phase": "int8_vs_plain", "cases": lines}), flush=True)
+    return err
+
+
+def make_serving_scorers(models, raw_models):
+    """The four serving modes of examples/hsi_pipeline.py:131-141."""
+    return {"f32": SIMCAScorer(models, chunk_size=SRV_CHUNK),
+            "bf16": SIMCAScorer(models, chunk_size=SRV_CHUNK,
+                                store_dtype=torch.bfloat16),
+            "int8": SIMCAScorer(models, chunk_size=SRV_CHUNK,
+                                store_dtype=torch.int8),
+            "raw-u16": SIMCAScorer(raw_models, chunk_size=SRV_CHUNK,
+                                   preprocess_fn=prep_raw)}
+
+
+EXPECTED_SCREEN_LAUNCHES = {
+    "f32": {"k1_f32": 2, "k1_bf16": 0, "k7": 0, "k8": 0},
+    "bf16": {"k1_f32": 0, "k1_bf16": 2, "k7": 0, "k8": 0},
+    "int8": {"k1_f32": 0, "k1_bf16": 0, "k7": 0, "k8": 2},
+    "raw-u16": {"k1_f32": 2, "k1_bf16": 0, "k7": 0, "k8": 0}}
+
+
+def serving_main_path(dev, models, raw_models, x, counts, xq, w, cal32,
+                      labels, decisions):
+    """Phase 14: the serving path as a user calls it (numpy in, numpy out),
+    each mode driven with the launch counts zeroed just before it and read
+    just after. Returns (scorers, screens, launches, streamed models)."""
+    scorers = make_serving_scorers(models, raw_models)
+    screens, launches = {}, {}
+    for mode, scorer in scorers.items():
+        zero_launch_counts()
+        screens[mode] = scorer.score(counts if mode == "raw-u16" else x)
+        torch.cuda.synchronize()
+        launches[mode] = launch_counts()
+    # the probe's path (K7 and K8 at each tile), and one single-class scorer
+    zero_launch_counts()
+    totals = int8_probe.scan(xq, w, PROBE_TILES)
+    torch.cuda.synchronize()
+    launches["probe"] = launch_counts()
+    single = SIMCAScorer(class_model(models, 0), chunk_size=SRV_CHUNK,
+                         center=scorers["f32"].center)
+    zero_launch_counts()
+    one = single.score(x)
+    torch.cuda.synchronize()
+    launches["single"] = launch_counts()
+    # the streaming fit: the calibration set as 7 labelled batches of 300
+    order = np.random.default_rng(7).permutation(len(labels))
+    moms = streaming.moments_init_classes(N_CLASSES, LENGTH)
+    for i in range(0, len(order), SRV_BATCH):
+        idx = order[i:i + SRV_BATCH]
+        moms = streaming.moments_update_classes(moms, cal32[idx], labels[idx],
+                                                list(range(N_CLASSES)))
+    streamed = streaming.fit_classes_moments(moms, K, solver="rsvd")
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "serving_launches", "launches": launches}),
+          flush=True)
+    for mode, want in EXPECTED_SCREEN_LAUNCHES.items():
+        check(launches[mode] == want, f"{mode} screen launches "
+              f"{launches[mode]} != {want}")
+    check(launches["probe"] == {"k1_f32": 0, "k1_bf16": 0,
+                                "k7": len(PROBE_TILES),
+                                "k8": len(PROBE_TILES)},
+          f"probe launches {launches['probe']}")
+    check(launches["single"]["k1_f32"] == 2,
+          f"single-class launches {launches['single']}")
+
+    line = {"phase": "serving_main_path", "spectra": x.shape[0],
+            "chunk": SRV_CHUNK}
+    for mode, out in screens.items():
+        for key, v in out.items():
+            check(v.shape == (x.shape[0], N_CLASSES),
+                  f"{mode}: {key} shape {v.shape}")
+            check(bool(np.isfinite(v).all()), f"{mode}: {key} not finite")
+        check(all(out[k].dtype == np.float32 for k in ("dred", "t2", "q")),
+              f"{mode}: statistics are not float32")
+        line[f"{mode}_accept_rate"] = out["accept"].mean(0).tolist()
+    # f32 against predict_classes on the same pre-centered set
+    center = scorers["f32"].center
+    offset = torch.as_tensor(center, device=dev)
+    acc_pc = predict_classes(models, torch.as_tensor(x - center, device=dev),
+                             x_offset=offset)[0].T.cpu().numpy()
+    line["f32_vs_predict_classes"] = float(
+        np.mean(acc_pc == screens["f32"]["accept"]))
+    check(line["f32_vs_predict_classes"] >= 0.999, "f32 screen against "
+          f"predict_classes: {line['f32_vs_predict_classes']}")
+    for mode in ("bf16", "int8"):
+        agree, dred = agreement(screens[mode], screens["f32"])
+        line[f"{mode}_vs_f32"] = {"accept": agree, "dred_of_max": dred}
+        check(agree >= 0.995, f"{mode} accepts vs f32 {agree} < 0.995")
+        check(dred <= 3e-2, f"{mode} dred vs f32 {dred} > 3e-2 of max")
+    xp = prep_raw(torch.as_tensor(counts, device=dev).to(torch.float32))
+    host = SIMCAScorer(raw_models, chunk_size=SRV_CHUNK).score(
+        xp.cpu().numpy())
+    agree, dred = agreement(screens["raw-u16"], host)
+    line["raw_vs_host_prep"] = {"accept": agree, "dred_of_max": dred}
+    check(agree >= 0.999, f"raw-u16 vs host prep {agree} < 0.999")
+    col = {k: v[:, 0] for k, v in screens["f32"].items()}
+    line["single_vs_column0"] = {
+        "accept_equal": bool(np.array_equal(one["accept"], col["accept"])),
+        "dred_of_max": agreement(one, col)[1]}
+    check(line["single_vs_column0"]["accept_equal"]
+          and line["single_vs_column0"]["dred_of_max"] <= 1e-6,
+          f"single-class scorer vs column 0: {line['single_vs_column0']}")
+    # prepared and sequential screens equal score bit for bit
+    for mode, scorer in scorers.items():
+        xin = counts if mode == "raw-u16" else x
+        for how, out in (("score_prepared",
+                          scorer.score_prepared(scorer.prepare(xin))),
+                         ("prefetch_0", scorer.score(xin, prefetch=0))):
+            same = all(np.array_equal(out[k], screens[mode][k])
+                       for k in screens[mode])
+            check(same, f"{mode}: {how} differs from score")
+    line["prepared_and_prefetch_0_bit_equal"] = True
+    # the probe's totals against the twins'
+    want = {}
+    for tile in PROBE_TILES:
+        want[f"read t={tile}"] = int(xq.sum(dtype=torch.int64))
+        want[f"gemm t={tile}"] = int(kernels.int8_gemm_s32_plain(
+            xq, w, tile).sum(dtype=torch.int64))
+    check(totals == want, f"probe totals {totals} != {want}")
+    line["probe_totals_equal_twins"] = True
+    # the streaming fit against fit_classes
+    lim = {"t2_limit": (streamed.t2_res.limit, models.t2_res.limit),
+           "q_limit": (streamed.q_res.limit, models.q_res.limit),
+           "d_limit": (streamed.d_limit, models.d_limit)}
+    line["streamed_limit_rel_err"] = {
+        k: ((a - b).abs() / b.abs()).max().item() for k, (a, b) in lim.items()}
+    stream_out = SIMCAScorer(streamed, chunk_size=SRV_CHUNK).score(x)
+    line["streamed_vs_fit_classes_accept"] = agreement(
+        stream_out, screens["f32"])[0]
+    for k, e in line["streamed_limit_rel_err"].items():
+        check(e <= 1e-3, f"streamed {k} differs from fit_classes by {e}")
+    check(line["streamed_vs_fit_classes_accept"] >= 0.999,
+          f"streamed accepts {line['streamed_vs_fit_classes_accept']}")
+    # the bf16 VAE twin on the decision phases' bundle and test spectra
+    model, bundle, vs, x_test, vae_f32 = decisions
+    for variant in ("d2", "vaesimca"):
+        out = VAEScorer(model, bundle, variant=variant, loss_type="cosine",
+                        chunk_size=DEC_CHUNK, compute_dtype=torch.bfloat16,
+                        vaesimca_model=vs if variant == "vaesimca" else None
+                        ).score(x_test)
+        agree = float(np.mean(out["accept"] == vae_f32[variant]["accept"]))
+        line[f"vae_bf16_{variant}"] = {
+            "accept_vs_f32": agree,
+            "stats_rel_err": stats_rel_err(out, vae_f32[variant]),
+            "accept_rate": accept_rate(out["accept"])}
+        check(agree >= 0.98, f"bf16 VAE {variant} accepts vs f32 {agree}")
+        check(all(v.dtype == np.float32 for k, v in out.items()
+                  if k != "accept"), f"bf16 VAE {variant}: statistics not f32")
+    print(json.dumps(line), flush=True)
+    return scorers, screens, launches, streamed
+
+
+def model_cpu64(models):
+    """A SIMCA model on the CPU, its float leaves in float64."""
+    def conv(t):
+        t = t.detach().cpu()
+        return t.double() if t.is_floating_point() else t
+
+    return SIMCAModel(*(LimitResult(*(conv(a) for a in v))
+                        if isinstance(v, LimitResult) else conv(v)
+                        for v in models))
+
+
+def serving_vs_cpu_f64(dev, models, scorers, cal64, labels, x):
+    """Phase 15: the card's f32 and int8 screens of 4,096 spectra against
+    the port's CPU in float64. The CPU f64 fit of the same data (the card's
+    test matrix): limits to 1e-3, accepts >= 99.9 %. The CPU f64 scorer of
+    the card's own models (its noise-bulk loadings are the card's, so T^2
+    of off-class spectra is comparable), with the same center, so that the
+    int8 chunks are the same (xq, xs, x2): statistics to 1e-4 of scale,
+    accepts >= 99.9 %."""
+    omega = default_omega(LENGTH, K + 10, torch.float32, dev)
+    ref = fit_classes(cal64, labels, list(range(N_CLASSES)), K, device="cpu",
+                      solver="rsvd", omega=omega.double().cpu())
+    lims = {"t2_limit": (models.t2_res.limit, ref.t2_res.limit),
+            "q_limit": (models.q_res.limit, ref.q_res.limit),
+            "d_limit": (models.d_limit, ref.d_limit)}
+    line = {"phase": "serving_vs_cpu_f64", "spectra": SRV_N_CPU,
+            "limit_rel_err": {k: ((a.double().cpu() - b).abs() / b.abs()
+                                  ).max().item() for k, (a, b) in lims.items()}}
+    center = scorers["f32"].center
+    x_cpu = x[::x.shape[0] // SRV_N_CPU][:SRV_N_CPU]    # every class, off-class
+    same = model_cpu64(models)
+    for mode, dt in (("f32", None), ("int8", torch.int8)):
+        got, want, fit64 = (SIMCAScorer(m, chunk_size=SRV_N_CPU, store_dtype=dt,
+                                        center=center).score(x_cpu)
+                            for m in (models, same, ref))
+        line[mode] = {"stats_rel_err": stats_rel_err(got, want),
+                      "accept_agreement": agreement(got, want)[0],
+                      "accept_agreement_f64_fit": agreement(got, fit64)[0]}
+    print(json.dumps(line), flush=True)
+    for k, e in line["limit_rel_err"].items():
+        check(e <= 1e-3, f"serving {k} differs from the CPU f64 fit by {e}")
+    for mode in ("f32", "int8"):
+        for k, e in line[mode]["stats_rel_err"].items():
+            check(e <= 1e-4, f"{mode} screen: {k} differs from CPU f64 by {e}")
+        for k in ("accept_agreement", "accept_agreement_f64_fit"):
+            check(line[mode][k] >= 0.999,
+                  f"{mode} screen: {k} {line[mode][k]} < 0.999")
+
+
+def kernel_timing(fn, plain, inputs, bound, library=None, plain_reps=10):
+    """Device ms of ``fn``, its plain twin and a library call over rotating
+    ``inputs`` (each call reads its input from device memory, not L2),
+    one call's ms with its wrapper, and the bound: a record's numbers."""
+    nbytes, ops, rate_bytes, rate_ops = bound
+    bytes_ms, ops_ms = 1e3 * nbytes / rate_bytes, 1e3 * ops / rate_ops
+    return {"ms": int8_probe.device_ms(fn, inputs),
+            "call_ms": median_ms(lambda: fn(inputs[0]), 3, 21),
+            "plain_ms": int8_probe.device_ms(plain, inputs, plain_reps),
+            "library_ms": (None if library is None
+                           else int8_probe.device_ms(library, inputs)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def serving_timings(dev, card, rates, models, scorers, x, counts, xq, wq,
+                    cal32, labels, gen, decisions):
+    """Phase 16: screens (numpy in, numpy out) and their split, the
+    streaming fit, the bf16 VAE twin's screens, and K7, K8 and bf16 K1
+    beside their bounds, twins and library calls. Returns {kernel: timing
+    record}."""
+    bw, f32_rate, int8_rate = rates
+    line = {"phase": "serving_timings", "card": card, "spectra": x.shape[0],
+            "chunk": SRV_CHUNK}
+    for mode, scorer in scorers.items():
+        xin = counts if mode == "raw-u16" else x
+        ms = median_ms(lambda: scorer.score(xin), 1, 3)
+        prepared = scorer.prepare(xin)
+        line[mode] = {
+            "simca_screen_ms": ms, "spectra_per_s": x.shape[0] / (ms / 1e3),
+            "prepare_ms": median_ms(lambda: scorer.prepare(xin), 1, 3),
+            "score_prepared_ms": median_ms(
+                lambda: scorer.score_prepared(prepared), 1, 3),
+            "shipped_mb": sum(a.numel() * a.element_size()
+                              for args, _ in prepared for a in args) / 1e6}
+        del prepared
+    classes = list(range(N_CLASSES))
+
+    def ingest():
+        moms = streaming.moments_init_classes(N_CLASSES, LENGTH)
+        for i in range(0, len(labels), SRV_BATCH):
+            moms = streaming.moments_update_classes(
+                moms, cal32[i:i + SRV_BATCH], labels[i:i + SRV_BATCH], classes)
+        return moms
+
+    moms = ingest()
+    line["stream_ingest_ms"] = median_ms(ingest, 1, 3)
+    line["stream_fit_ms"] = median_ms(lambda: streaming.fit_classes_moments(
+        moms, K, solver="rsvd"), 1, 3)
+    model, bundle, vs, x_test, _ = decisions
+    for variant in ("d2", "vaesimca"):
+        twin = VAEScorer(model, bundle, variant=variant, loss_type="cosine",
+                         chunk_size=DEC_CHUNK, compute_dtype=torch.bfloat16,
+                         vaesimca_model=vs if variant == "vaesimca" else None)
+        line[f"vae_bf16_{variant}_screen_ms"] = median_ms(
+            lambda: twin.score(x_test), 1, 3)
+    print(json.dumps(line), flush=True)
+
+    out = {}
+    inputs = int8_probe.rotated(xq)
+    n, lp = xq.shape
+    w = wq.T.contiguous()                      # K8 takes (M, L)
+    for tile in PROBE_TILES:
+        read = kernel_timing(
+            lambda a, t=tile: kernels.int8_tile_sum(a, t),
+            lambda a, t=tile: kernels.int8_tile_sum_plain(a, t), inputs,
+            (n * lp + 4 * (n // tile), n * lp, bw, int8_rate),
+            library=lambda a, t=tile: kernels.int8_tile_sum_plain(a, t))
+        gemm = kernel_timing(
+            lambda a, t=tile: kernels.int8_gemm_s32(a, w, t),
+            lambda a, t=tile: kernels.int8_gemm_s32_plain(a, w, t), inputs,
+            (n * lp + lp * 128 + 4 * (n // tile) * 128, 2 * n * lp * 128, bw,
+             int8_rate),
+            library=lambda a: torch._int_mm(a, wq), plain_reps=3)
+        out[f"k7 t={tile}"], out[f"k8 t={tile}"] = read, gemm
+    del inputs
+    # K8 at the scoring shape (one chunk against 2 (C k + C) columns), and
+    # torch._int_mm on copies zero-padded to K 504 and N 72 (its rules)
+    m = 2 * (N_CLASSES * K + N_CLASSES)
+    w = torch.randint(-127, 128, (m, LENGTH), dtype=torch.int8,
+                      generator=gen).to(dev)
+    chunks = [torch.randint(-127, 128, (SRV_CHUNK, LENGTH), dtype=torch.int8,
+                            generator=gen).to(dev) for _ in range(5)]
+    pad_k, pad_n = -(-LENGTH // 8) * 8, -(-m // 8) * 8
+    w_pad = F.pad(w, (0, pad_k - LENGTH, 0, pad_n - m)).T.contiguous()
+    padded = {id(c): F.pad(c, (0, pad_k - LENGTH)) for c in chunks}
+    out["k8 store"] = kernel_timing(
+        lambda a: kernels.int8_gemm_s32(a, w),
+        lambda a: kernels.int8_gemm_s32_plain(a, w), chunks,
+        (SRV_CHUNK * LENGTH + m * LENGTH + 4 * SRV_CHUNK * m,
+         2 * SRV_CHUNK * LENGTH * m, bw, int8_rate),
+        library=lambda a: torch._int_mm(padded[id(a)], w_pad), plain_reps=3)
+    del chunks, padded
+    # bf16 K1 at the serving shape: one chunk of bf16 residuals
+    center = torch.as_tensor(scorers["f32"].center, device=dev)
+    means = (models.mean - center).contiguous()
+    rest = (means, models.components.contiguous(), models.invcovT.contiguous())
+    step = (x.shape[0] - SRV_CHUNK) // 2
+    xs = [(torch.as_tensor(x[i * step:][:SRV_CHUNK], device=dev)
+           - center).to(torch.bfloat16) for i in range(3)]
+    c, k, length = models.components.shape
+    out["k1 bf16"] = kernel_timing(
+        lambda a: kernels.t2q_scores_multiclass(a, *rest),
+        lambda a: kernels.t2q_scores_multiclass_plain(a, *rest), xs,
+        (2 * SRV_CHUNK * length + 4 * (c * length + c * k * length
+                                       + c * k * k + 2 * c * SRV_CHUNK),
+         SRV_CHUNK * c * (length * (2 * k + 3) + 2 * k * k + 4 * k + 1),
+         bw, f32_rate),
+        library=lambda a: library_scores(a.float(), *rest))
+    # f32 K1 on the same chunks widened, for the bf16 instantiation's
+    # comparison at one shape
+    x32 = [a.float() for a in xs]
+    f32_chunk = {"ms": int8_probe.device_ms(
+        lambda a: kernels.t2q_scores_multiclass(a, *rest), x32)}
+    print(json.dumps({"phase": "serving_kernel_timings", "card": card,
+                      **out, "k1 f32 at the serving shape": f32_chunk}),
+          flush=True)
+    for key, rec in out.items():
+        check(all(math.isfinite(rec[f]) for f in ("ms", "call_ms",
+                                                  "plain_ms", "library_ms")),
+              f"{key}: a timing is not finite")
+    return out
+
+
+def serving_phases(dev, card, rates, decisions):
+    """Phases 13-16, the serving slice; returns the records of K7, K8 and
+    bf16 K1."""
+    gen = torch.Generator().manual_seed(13)
+    cals, _ = make_data()
+    cal64 = cals.reshape(-1, LENGTH)
+    cal32 = cal64.astype(np.float32)
+    labels = np.repeat(np.arange(N_CLASSES), N_CAL)
+    x64 = serving_data()
+    x, counts = x64.astype(np.float32), camera_counts(x64)
+    del x64
+    models = fit_classes(cal32, labels, list(range(N_CLASSES)), K,
+                         solver="rsvd")
+    xp_cal = prep_raw(torch.as_tensor(camera_counts(cal64), device=dev)
+                      .to(torch.float32))
+    raw_models = fit_classes(xp_cal, labels, list(range(N_CLASSES)), K,
+                             solver="rsvd")
+    n, lp, _ = int8_probe.HEADLINE
+    xq, wq = int8_probe.make_inputs(n, lp, dev)
+    w = wq.T.contiguous()
+
+    # 13. K7, K8 and bf16 K1 against their plain twins
+    int8_err = int8_vs_plain(xq, w, gen, dev)
+    center = torch.as_tensor(np.mean(models.mean.cpu().numpy(), axis=0),
+                             device=dev)
+    centered = models._replace(mean=models.mean - center)
+    bf16_err = compare_kernel(
+        f"bf16 serving N={SRV_CHUNK} L={LENGTH} C=3 k={K}",
+        (torch.as_tensor(x[:SRV_CHUNK], device=dev) - center).to(
+            torch.bfloat16), centered)
+    bf16_err = max(bf16_err, compare_kernel(
+        "bf16 ragged N=300 L=203 C=2 k=40",
+        torch.randn(300, 203, generator=gen).to(dev, torch.bfloat16),
+        _Scorer(2, 40, 203, gen, dev)))
+
+    # 14. the serving path as a user calls it, 15. against CPU f64
+    scorers, _, launches, _ = serving_main_path(
+        dev, models, raw_models, x, counts, xq, w, cal32, labels, decisions)
+    serving_vs_cpu_f64(dev, models, scorers, cal64, labels, x)
+
+    # 16. timings
+    t = serving_timings(dev, card, rates, models, scorers, x, counts, xq, wq,
+                        cal32, labels, gen, decisions)
+
+    def record(name, key, launch, err, source, replaces):
+        rec = t[key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launch, "max_abs_err": err,
+                **{f: rec[f] for f in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}}
+
+    return [
+        record("int8_tile_sum", f"k7 t={PROBE_TILES[0]}",
+               launches["probe"]["k7"], int8_err,
+               "ocm_tpu_torch/csrc/int8.cu", "scripts/probe_pallas_int8.py:70"),
+        record("int8_gemm_s32", "k8 store", launches["int8"]["k8"], int8_err,
+               "ocm_tpu_torch/csrc/int8.cu", "scripts/probe_pallas_int8.py:84"),
+        record("t2q_scores_multiclass_bf16", "k1 bf16",
+               launches["bf16"]["k1_bf16"], bf16_err,
+               "ocm_tpu_torch/csrc/t2q_scores.cu",
+               "ocm_tpu/ops/kernels.py:45")]
 
 
 def main() -> int:
@@ -1071,7 +1583,7 @@ def main() -> int:
     plain_ms = device_ms(lambda: kernels.t2q_scores_multiclass_plain(*args),
                          10)
     library_ms = device_ms(lambda: library_scores(*args), 10)
-    bw, f32_rate = peaks(name)
+    bw, f32_rate, int8_rate = peaks(name)
     n, length, c, k = N_SCORE, LENGTH, N_CLASSES, K
     nbytes = 4 * (n * length + c * length + c * k * length + c * k * k
                   + 2 * c * n)
@@ -1194,7 +1706,9 @@ def main() -> int:
                                          *bn_t.values())),
           "a VAE timing is not finite")
 
-    records.append(decision_phases(dev, card, bw, f32_rate))
+    k5_record, decisions = decision_phases(dev, card, bw, f32_rate)
+    records.append(k5_record)
+    records += serving_phases(dev, card, (bw, f32_rate, int8_rate), decisions)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,16 @@
   the GEMM-only randomized fit.
 - ``predict_classes`` scores a batch against all C models through the
   fused CUDA kernel (``ops.kernels.t2q_scores_multiclass``), one read of
-  the spectra for every class, centering directly.
+  the spectra for every class, centering directly; f32 spectra, or bf16
+  pre-centered residuals with their ``x_offset`` (the serving scorer's
+  half-width storage).
+- ``predict_classes_int8`` scores int8-quantized residuals through the
+  exact int8 product (kernel K8, ``ops.linalg.t2_q_scores_multiclass_int8``).
 - ``simca_model_from_numpy``/``simca_model_to_numpy`` carry a model across
   from the JAX package in the dict layout its ``save_simca_model`` writes.
 
 What waits for later slices: the masked (unequal class size) fit, the
-sklearn-style wrapper, msgpack persistence and the int8/bf16 serving paths.
+sklearn-style wrapper and msgpack persistence.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 from ocm_tpu_torch._device import as_tensor, resolve_device
 from ocm_tpu_torch.ops.kernels import t2q_scores_multiclass
 from ocm_tpu_torch.ops.linalg import (cov, deflated_thetas, full_f32_matmul,
-                                      pca_fit, pca_topk_cov, pinv_psd)
+                                      pca_fit, pca_topk_cov, pinv_psd,
+                                      t2_q_scores_multiclass_int8)
 from ocm_tpu_torch.stats import limits as L
 
 
@@ -105,18 +110,28 @@ def fit_simca(x_cls, n_components: int, decision_type: str = "alt",
 
 
 def _on_model(models: SIMCAModel, x):
-    """``x`` as a tensor on the models' device, in their dtype."""
-    return torch.as_tensor(x, dtype=models.mean.dtype, device=models.mean.device)
+    """``x`` as a tensor on the models' device, in their dtype; a bf16
+    tensor stays bf16 (the kernel reads it at half width)."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return x.to(models.mean.device)
+    return torch.as_tensor(x, dtype=models.mean.dtype,
+                           device=models.mean.device)
 
 
-def simca_scores(model: SIMCAModel, x):
+def simca_scores(model: SIMCAModel, x, x_offset=None):
     """T^2 and Q of ``x`` (N, L) against one model, or a (C,) stack of them.
 
-    Runs through the fused kernel (plain twin on the CPU).  Returns t2, q
-    shaped (N,) for one model and (C, N) for a stack.
+    Runs through the fused kernel (plain twin on the CPU).  ``x_offset``
+    (L,): ``x`` holds residuals ``x - x_offset``, and the offset folds into
+    the means.  Returns t2, q shaped (N,) for one model and (C, N) for a
+    stack.
     """
     x = _on_model(model, x).contiguous()
-    stacked = [a.contiguous() for a in (model.mean, model.components,
+    mean = model.mean
+    if x_offset is not None:
+        mean = mean - torch.as_tensor(x_offset, dtype=mean.dtype,
+                                      device=mean.device)
+    stacked = [a.contiguous() for a in (mean, model.components,
                                         model.invcovT)]
     if model.mean.dim() == 1:
         t2, q = t2q_scores_multiclass(x, *(a[None] for a in stacked))
@@ -124,10 +139,11 @@ def simca_scores(model: SIMCAModel, x):
     return t2q_scores_multiclass(x, *stacked)
 
 
-def simca_decide(model: SIMCAModel, x, decision_type: str = "alt"):
+def simca_decide(model: SIMCAModel, x, decision_type: str = "alt",
+                 x_offset=None):
     """Accept/reject + reduced distance; accept uses the reference's strict
     ``<``.  Returns (accept, dred, t2, q)."""
-    t2, q = simca_scores(model, x)
+    t2, q = simca_scores(model, x, x_offset)
     dred = L.reduced_distance(decision_type, t2, q, model.t2_res, model.q_res)
     return dred < model.d_limit[..., None], dred, t2, q
 
@@ -168,14 +184,50 @@ def fit_classes(x, classes, class_labels, n_components: int, device=None,
     return fit_simca(stacked, n_components, **kwargs)
 
 
-def predict_classes(models: SIMCAModel, x, decision_type: str = "alt"):
+def predict_classes(models: SIMCAModel, x, decision_type: str = "alt",
+                    x_offset=None):
     """Score one batch (N, L) against C stacked models through the fused
     kernel: (C, N) accept matrix, plus dred, t2 and q, each (C, N).
 
-    ``x`` is moved to the models' device and cast to their dtype; the CUDA
-    kernel takes float32.
+    ``x`` goes to the models' device in their dtype, except a bf16 tensor,
+    which the kernel reads at 2 bytes an element and widens to f32 as it
+    stages it (means, loadings and statistics stay f32).  Store bf16 as
+    pre-centered residuals ``x - x_offset`` against an f32 reference
+    spectrum ``x_offset`` (L,), which folds into the class means.
+
+    The reference's ``x_sumsq`` (a precomputed ``||x||^2``) is not ported:
+    the kernel forms ``||x - m_c||^2`` in its single read of ``x`` and
+    never expands Q, so the second read it spares
+    (``ocm_tpu/ops/linalg.py:376-383``) and the expansion's cancellation
+    (``ocm_tpu/models/simca.py:254-261``) do not arise here.
     """
-    return simca_decide(models, x, decision_type)
+    return simca_decide(models, x, decision_type, x_offset)
+
+
+def predict_classes_int8(models: SIMCAModel, xq, x_scale, x_sumsq,
+                         decision_type: str = "alt", x_offset=None):
+    """``predict_classes`` over int8-quantized residuals.
+
+    ``(xq, x_scale, x_sumsq)`` come from
+    ``ops.linalg.quantize_rows_int8(x - x_offset)``: quantize the
+    pre-centered residual, so that the error scales with the residual and
+    not with the spectrum's common mode, and pass the same ``x_offset``.
+    One exact int8 product (kernel K8 on the card) scores all C classes;
+    statistics and limits are f32 or wider.  Returns (accept, dred, t2, q),
+    each (C, N).
+    """
+    dev = models.mean.device
+    xq, x_scale, x_sumsq = (torch.as_tensor(a, device=dev)
+                            for a in (xq, x_scale, x_sumsq))
+    if x_offset is not None:
+        x_offset = torch.as_tensor(x_offset, dtype=models.mean.dtype,
+                                   device=dev)
+    t2, q, _ = t2_q_scores_multiclass_int8(
+        xq.contiguous(), x_scale, x_sumsq, models.mean, models.components,
+        models.invcovT, x_offset=x_offset)
+    dred = L.reduced_distance(decision_type, t2, q, models.t2_res,
+                              models.q_res)
+    return dred < models.d_limit[:, None], dred, t2, q
 
 
 def simca_model_to_numpy(model: SIMCAModel) -> dict:

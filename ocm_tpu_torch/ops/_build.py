@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("common.cu", "t2q_scores.cu", "bn_act.cu", "reparam_kl.cu",
-           "reparam_sample.cu")
+           "reparam_sample.cu", "int8.cu")
 HEADERS = ("common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -42,6 +42,9 @@ _P, _I, _F, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 # entry point -> argument types (pointers and the stream as c_void_p)
 ENTRY_POINTS = {
     "t2q_scores_multiclass_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "t2q_scores_multiclass_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    "int8_tile_sum": [_P] * 2 + [_I] * 3 + [_P],
+    "int8_gemm_s32": [_P] * 3 + [_I] * 4 + [_P],
     "bn_act_fwd_f32": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
     "bn_act_bwd_f32": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
     "reparam_kl_f32": [_P] * 5 + [_I] * 2 + [_P],

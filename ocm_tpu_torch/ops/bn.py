@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ocm_tpu_torch.ops import _build
-from ocm_tpu_torch.ops.kernels import check_cuda_f32, stream_of
+from ocm_tpu_torch.ops.kernels import check_cuda_tensors, stream_of
 
 ACTS = ("elu", "gelu", "none")
 
@@ -115,8 +115,9 @@ def _check(what, x, channel_vectors, like_x=None):
     """x and each tensor of ``like_x`` contiguous f32 (B, C, L) CUDA tensors
     of one shape, each of ``channel_vectors`` of shape (C,)."""
     like_x = like_x or {}
-    check_cuda_f32(what, {"x": (x, 3), **{k: (v, 3) for k, v in like_x.items()},
-                          **{k: (v, 1) for k, v in channel_vectors.items()}})
+    check_cuda_tensors(what, {
+        "x": (x, 3), **{k: (v, 3) for k, v in like_x.items()},
+        **{k: (v, 1) for k, v in channel_vectors.items()}})
     c = x.shape[1]
     for name, v in like_x.items():
         if v.shape != x.shape:

@@ -4,7 +4,15 @@
   ``t2_q_scores_pallas`` (``ocm_tpu/ops/kernels.py:45``) in its
   multi-class form: T^2 and Q of every spectrum against C SIMCA models,
   centering directly (``x - m_c``) in one read of the spectra
-  (``ocm_tpu_torch/csrc/t2q_scores.cu``).
+  (``ocm_tpu_torch/csrc/t2q_scores.cu``), for f32 spectra and for bf16
+  ones (the serving scorer's half-width residuals, widened as staged).
+- ``int8_tile_sum`` (K7) and ``int8_gemm_s32`` (K8) are the ports of the
+  int8 probe kernels ``make_read`` and ``make_gemm``
+  (``scripts/probe_pallas_int8.py:70,84``): per-tile int32 sums of an int8
+  array, and the exact s8 x s8 -> s32 product, written out or reduced to
+  per-tile column sums in the kernel.  K8 is also the product of the int8
+  scoring op (``ops.linalg.t2_q_scores_multiclass_int8``)
+  (``ocm_tpu_torch/csrc/int8.cu``).
 - ``reparam_kl`` is the port of ``reparam_loss_pallas`` with explicit
   noise (``ocm_tpu/ops/kernels.py:110``): ``z = mu + eps * exp(lv / 2)``
   and the per-sample KL (``ocm_tpu_torch/csrc/reparam_kl.cu``).
@@ -35,17 +43,17 @@ from ocm_tpu_torch.ops import _build
 _INT_MAX = 2 ** 31 - 1
 
 
-def check_cuda_f32(what, tensors):
+def check_cuda_tensors(what, tensors, dtype=torch.float32):
     """Raise unless every tensor of ``tensors`` ({name: (tensor, ndim)})
-    is a contiguous float32 CUDA tensor of that rank on one device."""
+    is a contiguous CUDA tensor of that rank and ``dtype`` on one device."""
     device = next(iter(tensors.values()))[0].device
     if device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or CPU tensors, not {device}")
     for name, (a, ndim) in tensors.items():
         if a.device != device:
             raise ValueError(f"{what}: {name} is on {a.device}, not {device}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"{what}: the CUDA kernel takes float32 tensors; "
+        if a.dtype != dtype:
+            raise TypeError(f"{what}: the CUDA kernel takes {dtype} tensors; "
                             f"{name} is {a.dtype}")
         if a.dim() != ndim or not a.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous {ndim}-d "
@@ -63,9 +71,10 @@ def t2q_scores_multiclass_plain(x, means, components, invcovs):
     """T^2 and Q of ``x`` (N, L) against C models, in plain PyTorch.
 
     means (C, L), components (C, k, L), invcovs (C, k, k); f32 or f64.
-    Returns t2 (C, N) and q (C, N).
+    A bf16 ``x`` is widened to the means' dtype.  Returns t2 (C, N) and
+    q (C, N).
     """
-    xc = x[None, :, :] - means[:, None, :]                 # (C, N, L)
+    xc = x.to(means.dtype)[None, :, :] - means[:, None, :]  # (C, N, L)
     t = xc @ components.mT                                 # (C, N, k)
     t2 = ((t @ invcovs) * t).sum(-1)
     q = ((xc * xc).sum(-1) - (t * t).sum(-1)).clamp_min(0.0)
@@ -75,14 +84,22 @@ def t2q_scores_multiclass_plain(x, means, components, invcovs):
 def t2q_scores_multiclass(x, means, components, invcovs):
     """Fused T^2/Q scoring of ``x`` (N, L) against C models at once.
 
-    CPU tensors: the plain twin.  CUDA tensors (float32, contiguous): the
-    hand-written kernel on the current stream.  Returns t2, q, each (C, N).
+    CPU tensors: the plain twin.  CUDA tensors (contiguous; ``x`` float32
+    or bfloat16, the rest float32): the hand-written kernel on the current
+    stream, its f32 or its bf16-input instantiation; ``launches`` and
+    ``launches_bf16`` count them.  Returns t2, q, each (C, N), f32.
     """
     if x.device.type == "cpu":
         return t2q_scores_multiclass_plain(x, means, components, invcovs)
-    check_cuda_f32("t2q_scores_multiclass", {
-        "x": (x, 2), "means": (means, 2), "components": (components, 3),
+    bf16 = x.dtype == torch.bfloat16
+    check_cuda_tensors("t2q_scores_multiclass", {"x": (x, 2)},
+                       torch.bfloat16 if bf16 else torch.float32)
+    check_cuda_tensors("t2q_scores_multiclass", {
+        "means": (means, 2), "components": (components, 3),
         "invcovs": (invcovs, 3)})
+    if means.device != x.device:
+        raise ValueError(f"t2q_scores_multiclass: means are on "
+                         f"{means.device}, x on {x.device}")
     n, length = x.shape
     c, k, length_p = components.shape
     if (means.shape != (c, length) or length_p != length
@@ -96,16 +113,111 @@ def t2q_scores_multiclass(x, means, components, invcovs):
     if n == 0 or c == 0:
         return t2, q
     with torch.cuda.device(x.device):
-        err = _build.library().t2q_scores_multiclass_f32(
-            x.data_ptr(), means.data_ptr(), components.data_ptr(),
-            invcovs.data_ptr(), t2.data_ptr(), q.data_ptr(),
-            n, length, c, k, stream_of(x))
+        lib = _build.library()
+        entry = (lib.t2q_scores_multiclass_bf16 if bf16
+                 else lib.t2q_scores_multiclass_f32)
+        err = entry(x.data_ptr(), means.data_ptr(), components.data_ptr(),
+                    invcovs.data_ptr(), t2.data_ptr(), q.data_ptr(),
+                    n, length, c, k, stream_of(x))
     _build.check(err, "t2q_scores_multiclass")
-    t2q_scores_multiclass.launches += 1
+    if bf16:
+        t2q_scores_multiclass.launches_bf16 += 1
+    else:
+        t2q_scores_multiclass.launches += 1
     return t2, q
 
 
 t2q_scores_multiclass.launches = 0
+t2q_scores_multiclass.launches_bf16 = 0
+
+
+def int8_tile_sum_plain(xq, tile: int):
+    """The int32 sum of every ``tile`` consecutive rows of int8 ``xq``
+    (N, L), N a multiple of ``tile``: (N // tile,) int32.  This is also
+    the one PyTorch call that computes it."""
+    return xq.view(xq.shape[0] // tile, -1).sum(1, dtype=torch.int32)
+
+
+def _check_tile(what, n: int, tile: int):
+    if tile < 1 or n % tile:
+        raise ValueError(f"{what}: tile={tile} must be >= 1 and divide the "
+                         f"{n} rows")
+
+
+def int8_tile_sum(xq, tile: int):
+    """Kernel K7: per-tile int32 sums of int8 ``xq`` (N, L), (N // tile,).
+
+    CPU tensors: the plain twin.  CUDA tensors (int8, contiguous): the
+    hand-written kernel on the current stream (``launches`` counts it).
+    """
+    n = xq.shape[0]
+    _check_tile("int8_tile_sum", n, tile)
+    if xq.device.type == "cpu":
+        return int8_tile_sum_plain(xq, tile)
+    check_cuda_tensors("int8_tile_sum", {"xq": (xq, 2)}, torch.int8)
+    out = torch.zeros((n // tile,), dtype=torch.int32, device=xq.device)
+    if xq.numel() == 0:
+        return out
+    with torch.cuda.device(xq.device):
+        err = _build.library().int8_tile_sum(
+            xq.data_ptr(), out.data_ptr(), n, xq.shape[1], tile,
+            stream_of(xq))
+    _build.check(err, "int8_tile_sum")
+    int8_tile_sum.launches += 1
+    return out
+
+
+int8_tile_sum.launches = 0
+
+
+def int8_gemm_s32_plain(xq, w, tile=None):
+    """``xq @ w.T`` of int8 ``xq`` (N, L) and ``w`` (M, L) in int32, exact:
+    the product in float64 of the int8 values (every partial sum is an
+    integer below 2^53), cast to int32.  With ``tile``, the column sums of
+    every ``tile`` rows, (N // tile, M), wrapped mod 2^32 like int32 sums.
+    In float64 because the card has no integer matmul in PyTorch."""
+    g = (xq.to(torch.float64) @ w.to(torch.float64).T).to(torch.int64)
+    if tile is not None:
+        g = g.view(xq.shape[0] // tile, tile, -1).sum(1)
+    return g.to(torch.int32)
+
+
+def int8_gemm_s32(xq, w, tile=None):
+    """Kernel K8: the exact s8 x s8 -> s32 product ``xq @ w.T`` of ``xq``
+    (N, L) and ``w`` (M, L), (N, M) int32; with ``tile`` its column sums
+    over each ``tile`` rows, (N // tile, M), reduced in the kernel.
+
+    CPU tensors: the plain twin.  CUDA tensors (int8, contiguous): the
+    hand-written kernel on the current stream (``launches`` counts it).
+    """
+    n, length = xq.shape
+    m = w.shape[0]
+    if w.dim() != 2 or w.shape[1] != length:
+        raise ValueError(f"int8_gemm_s32: w must be (M, {length}), got "
+                         f"{tuple(w.shape)}")
+    if tile is not None:
+        _check_tile("int8_gemm_s32", n, tile)
+    if xq.device.type == "cpu":
+        return int8_gemm_s32_plain(xq, w, tile)
+    check_cuda_tensors("int8_gemm_s32", {"xq": (xq, 2), "w": (w, 2)},
+                       torch.int8)
+    rows = n if tile is None else n // tile
+    out = (torch.empty if tile is None else torch.zeros)(
+        (rows, m), dtype=torch.int32, device=xq.device)
+    if out.numel() == 0:
+        return out
+    if length == 0:
+        return out.zero_()
+    with torch.cuda.device(xq.device):
+        err = _build.library().int8_gemm_s32(
+            xq.data_ptr(), w.data_ptr(), out.data_ptr(), n, length, m,
+            tile or 0, stream_of(xq))
+    _build.check(err, "int8_gemm_s32")
+    int8_gemm_s32.launches += 1
+    return out
+
+
+int8_gemm_s32.launches = 0
 
 
 def reparam_kl_plain(mu, logvar, eps):
@@ -125,8 +237,8 @@ def reparam_kl(mu, logvar, eps):
     """
     if mu.device.type == "cpu":
         return reparam_kl_plain(mu, logvar, eps)
-    check_cuda_f32("reparam_kl", {"mu": (mu, 2), "logvar": (logvar, 2),
-                                  "eps": (eps, 2)})
+    check_cuda_tensors("reparam_kl", {"mu": (mu, 2), "logvar": (logvar, 2),
+                                      "eps": (eps, 2)})
     if logvar.shape != mu.shape or eps.shape != mu.shape:
         raise ValueError(f"shape mismatch: mu {tuple(mu.shape)}, logvar "
                          f"{tuple(logvar.shape)}, eps {tuple(eps.shape)}")
@@ -262,7 +374,8 @@ def reparam_kl_sample(mu, logvar, seed: int, offset: int = 0,
     if mu.device.type == "cpu":
         z, kl, eps = reparam_kl_sample_plain(mu, logvar, seed, offset)
         return (z, kl, eps) if return_eps else (z, kl)
-    check_cuda_f32("reparam_kl_sample", {"mu": (mu, 2), "logvar": (logvar, 2)})
+    check_cuda_tensors("reparam_kl_sample",
+                       {"mu": (mu, 2), "logvar": (logvar, 2)})
     if logvar.shape != mu.shape:
         raise ValueError(f"shape mismatch: mu {tuple(mu.shape)}, logvar "
                          f"{tuple(logvar.shape)}")

@@ -14,7 +14,10 @@ from __future__ import annotations
 import contextlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from ocm_tpu_torch.ops.kernels import int8_gemm_s32
 
 
 @contextlib.contextmanager
@@ -176,6 +179,77 @@ def mahalanobis_sq(x, mean, cov_inv):
     ``mean`` (..., k) under ``cov_inv`` (..., k, k)."""
     d = x - mean[..., None, :]
     return ((d @ cov_inv) * d).sum(-1)
+
+
+def quantize_rows_int8(a):
+    """Per-row symmetric int8 quantization: ``a ~= q * scale[:, None]``.
+
+    Returns ``(q int8, scale f32, sumsq f32)``; ``sumsq`` is the exact
+    squared norm of the quantized rows (the integer sum of squares times
+    scale^2), computed once at storage time so that int8 scoring reads each
+    row once.  A numpy array (the serving scorer's host prep of each chunk)
+    gives numpy arrays, a tensor (the projection operand, on its device)
+    tensors, by the same f32 arithmetic: ``amax / 127`` floored at 1e-30
+    (an all-zero row gets a finite scale, not 0/0), round half to even,
+    clip to +-127.  (The JAX package routes 2-D numpy input through its
+    native library, bit-identical to this numpy form.)
+    """
+    if isinstance(a, np.ndarray):
+        a = a.astype(np.float32, copy=False)
+        scale = np.maximum(np.abs(a).max(-1) / np.float32(127.0),
+                           np.float32(1e-30)).astype(np.float32)
+        q = np.clip(np.round(a / scale[..., None]), -127, 127).astype(np.int8)
+        sumsq = (np.sum(q.astype(np.int32) ** 2, axis=-1).astype(np.float32)
+                 * scale * scale)
+        return q, scale, sumsq
+    a = a.to(torch.float32)
+    scale = (a.abs().amax(-1) / 127.0).clamp_min(1e-30)
+    q = torch.round(a / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    sumsq = (q.to(torch.int32).square().sum(-1, dtype=torch.int32)
+             .to(torch.float32) * scale * scale)
+    return q, scale, sumsq
+
+
+def t2_q_scores_multiclass_int8(xq, x_scale, x_sumsq, means, components,
+                                invcovs, x_offset=None):
+    """T^2 and Q of int8-stored residuals against C models (port of
+    ``ocm_tpu/ops/linalg.py:t2_q_scores_multiclass_int8``).
+
+    ``xq`` (N, L) int8 with ``x_scale``/``x_sumsq`` (N,) f32 is the
+    ``quantize_rows_int8`` of the pre-centered residuals ``x - x_offset``;
+    the offset folds into the class means.  As in the reference, the
+    stacked operand ``w = [P_1 .. P_C ; m_1 .. m_C]`` (M = C k + C rows)
+    is quantized in two levels (int8 ``w_hi`` plus the re-quantized
+    remainder ``w_lo``), and one exact s8 x s8 -> s32 product of ``xq``
+    against ``[w_hi ; w_lo]`` (2M columns) reads the spectra once: kernel
+    K8 (``ops.kernels.int8_gemm_s32``) on the card, its exact float64
+    twin on the CPU.  Dequantization, T^2 and the expanded Q
+    (``||x||^2 - 2 x.m + ||m||^2 - ||t||^2``, with ``x_sumsq`` shipped)
+    run in the models' dtype, at least f32.  Returns t2 (C, N), q (C, N)
+    and t (C, N, k).
+    """
+    acc = torch.promote_types(means.dtype, torch.float32)
+    means, components = means.to(acc), components.to(acc)
+    if x_offset is not None:
+        means = means - x_offset.to(acc)[None, :]
+    n_classes, k, length = components.shape
+    w = torch.cat([components.reshape(n_classes * k, length), means])
+    w_hi, s_hi, _ = quantize_rows_int8(w)
+    w_lo, s_lo, _ = quantize_rows_int8(w - w_hi.to(acc) * s_hi[:, None])
+    m = n_classes * k + n_classes
+    g2 = int8_gemm_s32(xq, torch.cat([w_hi, w_lo]))       # (N, 2M) int32
+    g2 = g2.to(acc) * x_scale[:, None].to(acc)
+    g = g2[:, :m] * s_hi[None, :] + g2[:, m:] * s_lo[None, :]
+    xp = g[:, :n_classes * k].reshape(-1, n_classes, k).permute(1, 0, 2)
+    xm = g[:, n_classes * k:].T                           # (C, N)
+    with full_f32_matmul():
+        mp = torch.einsum("cl,ckl->ck", means, components)  # unquantized
+        t = xp - mp[:, None, :]
+        m2 = (means * means).sum(-1)
+        q = (x_sumsq.to(acc)[None, :] - 2.0 * xm + m2[:, None]
+             - (t * t).sum(-1)).clamp_min(0.0)
+        t2 = torch.einsum("cnj,cjk,cnk->cn", t, invcovs.to(acc), t)
+    return t2, q, t
 
 
 def t2_q_scores(x, mean, components, invcovT):

@@ -15,8 +15,13 @@ the same 'vaesimca' chunk moved its Q by ~1e-6 of its scale
 input, and a stacked screen equals its single-class screens bit for bit,
 also with scorers deciding in several threads at once.
 
-``SIMCAScorer`` (bf16/int8 storage, raw ingest) comes with ROADMAP.md
-queue 1 item 8; sharding chunks over a mesh with item 14.
+``SIMCAScorer`` screens spectra against one SIMCA model or a stack of C
+(one read of each chunk for every class) at four storage widths: f32,
+bf16 residuals, int8 residuals with per-row scales, and raw camera counts
+(e.g. uint16) preprocessed on the device.  ``VAEScorer(compute_dtype=
+torch.bfloat16)`` is the reduced-precision twin of the VAE scorer.
+Sharding chunks over several cards (``mesh=``) comes with ROADMAP.md
+queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -29,8 +34,12 @@ import torch
 from ocm_tpu_torch.models import vae_decision as D
 from ocm_tpu_torch.models.bundle import (OCMBundle, bind, class_slice,
                                          decode, encode, standardize)
+from ocm_tpu_torch.models.simca import (SIMCAModel, predict_classes,
+                                        predict_classes_int8)
 from ocm_tpu_torch.models.vae import ConvVAE1D
 from ocm_tpu_torch.models.vaesimca import predict_vaesimca
+from ocm_tpu_torch.ops.linalg import quantize_rows_int8
+from ocm_tpu_torch.stats.limits import LimitResult
 from ocm_tpu_torch.stats.qhf import qhf_batch_host
 
 
@@ -47,20 +56,20 @@ def _pad_chunk(chunk: np.ndarray, size: int):
 class _ChunkedScorer:
     """Shared machinery: fixed-size chunks, ragged tails padded.
 
-    ``decide_fn(chunk_tensor) -> {name: tensor}`` runs on ``device``;
-    ``post_fn`` is a host epilogue on the fetched numpy dict, applied
-    before the pad rows are cut.
+    A subclass's ``_prepare_chunk`` turns one padded numpy chunk into the
+    tuple of device tensors (of any dtypes) that ``decide_fn(*tensors) ->
+    {name: tensor}`` takes; ``post_fn`` is a host epilogue on the fetched
+    numpy dict, applied before the pad rows are cut.
     """
 
-    def __init__(self, decide_fn, device, dtype, chunk_size: int = 8192,
-                 mesh=None, post_fn=None):
+    def __init__(self, decide_fn, chunk_size: int = 8192, mesh=None,
+                 post_fn=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (chunks sharded over devices) comes with the "
                 "torch.distributed slice, ROADMAP.md queue 1 item 14")
         self.chunk_size = int(chunk_size)
         self._fn, self._post = decide_fn, post_fn
-        self._device, self._dtype = device, dtype
 
     def _fetch(self, res, n: int) -> dict:
         out = {k: v.cpu().numpy() for k, v in res.items()}
@@ -69,8 +78,7 @@ class _ChunkedScorer:
         return {k: a[:n] for k, a in out.items()}
 
     def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
-        return (torch.as_tensor(chunk, dtype=self._dtype,
-                                device=self._device),)
+        raise NotImplementedError
 
     def _decide(self, *args):
         with torch.inference_mode():
@@ -138,6 +146,157 @@ class _ChunkedScorer:
             yield self.score(chunk)
 
 
+def _stack1(model: SIMCAModel) -> SIMCAModel:
+    """One model as a stack of one (a class axis on every leaf)."""
+    return SIMCAModel(*(LimitResult(*(a[None] for a in v))
+                        if isinstance(v, LimitResult) else v[None]
+                        for v in model))
+
+
+def _host_f32(a) -> np.ndarray:
+    return a.detach().cpu().numpy().astype(np.float32)
+
+
+class SIMCAScorer(_ChunkedScorer):
+    """Resident classical-SIMCA scorer, single or multi-class.
+
+    A stacked model (``models.simca.fit_classes``) screens every class from
+    one read of each chunk (kernel K1); outputs then carry a trailing
+    class axis: ``accept``/``dred``/``t2``/``q`` are (N, C).  Multi-class
+    chunks are always centered on the host against ``center``, by default
+    the mean of the class means; the offset folds into the class means.
+
+    ``store_dtype``:
+    - None: chunks ship in f32 (4 B an element) through K1: a multi-class
+      chunk as its host-centered residual, a single-class chunk as it is
+      (or centered, when ``center`` is given);
+    - ``torch.bfloat16``: the host-centered residual (against the model
+      mean, or ``center``) cast to bf16 on the host (round to nearest even,
+      as ``ml_dtypes``), 2 B an element; K1 reads it at half width and
+      keeps means, loadings and statistics f32;
+    - ``torch.int8``: each host-centered residual row quantized to int8
+      with a per-row f32 scale and its exact squared norm
+      (``ops.linalg.quantize_rows_int8``), 1 B an element + 8 B a row;
+      the device scores through the exact int8 product (kernel K8), no K1.
+
+    ``preprocess_fn`` (exclusive of ``store_dtype``) is raw ingest: chunks
+    ship at their storage dtype (e.g. uint16 camera counts, 2 B an
+    element, no host work) and the device widens them to f32, applies
+    ``preprocess_fn`` (e.g. ``lambda x: snv_savgol(x, 5, 2, 1)``),
+    subtracts the offset (multi-class) and scores through K1.
+
+    ``center``: the (L,) f32 offset chunks are centered against.  To
+    re-screen chunks prepared by one scorer against updated models, build
+    the new scorer with ``center=old.center``.
+    """
+
+    def __init__(self, model: SIMCAModel, decision_type: str = "alt",
+                 chunk_size: int = 8192, mesh=None, store_dtype=None,
+                 center=None, preprocess_fn=None):
+        if store_dtype not in (None, torch.bfloat16, torch.int8):
+            raise ValueError(
+                "store_dtype supports torch.bfloat16 or torch.int8")
+        if preprocess_fn is not None and store_dtype is not None:
+            raise ValueError(
+                "preprocess_fn (raw device-side ingest) and store_dtype "
+                "(host-quantized residual storage) are mutually exclusive: "
+                "quantizing the residual requires the preprocessed spectrum "
+                "on the host, which is exactly the work preprocess_fn moves "
+                "onto the device")
+        self._multiclass = model.mean.dim() == 2
+        if center is not None:
+            center = np.asarray(center, np.float32)
+            length = model.mean.shape[-1]
+            if center.shape != (length,):
+                raise ValueError(
+                    f"center must be a ({length},) spectrum (got shape "
+                    f"{center.shape}); for re-screening pass the previous "
+                    "scorer's .center")
+        if (preprocess_fn is not None and not self._multiclass
+                and center is not None):
+            raise ValueError(
+                "center= is for re-screening stored residual chunks and "
+                "cannot be combined with preprocess_fn (raw ingest) on a "
+                "single-class model")
+        if center is None and (self._multiclass or store_dtype is not None):
+            center = (np.mean(_host_f32(model.mean), axis=0)
+                      if self._multiclass else _host_f32(model.mean))
+        self._center, self._store_dtype = center, store_dtype
+        self._raw_fn = preprocess_fn
+        self._device = model.mean.device
+        models = model if self._multiclass else _stack1(model)
+        offset = None if center is None else torch.as_tensor(
+            center, dtype=model.mean.dtype, device=self._device)
+
+        if store_dtype == torch.int8:
+            def scores(xq, xs, x2):
+                return predict_classes_int8(models, xq, xs, x2,
+                                            decision_type, x_offset=offset)
+        elif preprocess_fn is not None:
+            def scores(x_raw):
+                x = preprocess_fn(x_raw.to(torch.float32))
+                if offset is not None:
+                    x = x - offset
+                return predict_classes(models, x, decision_type, offset)
+        else:
+            def scores(x):
+                return predict_classes(models, x, decision_type, offset)
+
+        def decide(*chunk):
+            out = dict(zip(("accept", "dred", "t2", "q"), scores(*chunk)))
+            # batch-leading (N, C), or (N,) for one model
+            return {k: v.T if self._multiclass else v[0]
+                    for k, v in out.items()}
+
+        super().__init__(decide, chunk_size, mesh)
+
+    @property
+    def center(self):
+        """The f32 offset chunks are centered against (None: single-class
+        f32 or raw chunks shipped as they are)."""
+        return self._center
+
+    def _to_device(self, arrays) -> tuple:
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+            self._device) for a in arrays)
+
+    def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
+        if self._raw_fn is not None:          # raw: the storage dtype as is
+            return self._to_device((chunk,))
+        x = np.asarray(chunk, np.float32)
+        if self._center is not None:
+            x = x - self._center[None, :]
+        if self._store_dtype == torch.int8:
+            return self._to_device(quantize_rows_int8(x))
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self._store_dtype == torch.bfloat16:
+            t = t.to(torch.bfloat16)          # on the host: 2 B to ship
+        return (t.to(self._device),)
+
+
+class _Bf16Twin(torch.nn.Module):
+    """A bound module whose network passes run under ``torch.autocast`` in
+    bf16 on its device type; latents and reconstructions come back widened
+    to the input's dtype, so every statistic after them is computed at
+    full width."""
+
+    def __init__(self, bound: ConvVAE1D):
+        super().__init__()
+        self.net = bound
+        self.bound_state = bound.bound_state
+        self.eval()
+
+    def encode(self, x):
+        with torch.autocast(x.device.type, dtype=torch.bfloat16):
+            mu, logvar = self.net.encode(x)
+        return mu.to(x.dtype), logvar.to(x.dtype)
+
+    def decode(self, z):
+        with torch.autocast(z.device.type, dtype=torch.bfloat16):
+            x_rec = self.net.decode(z)
+        return x_rec.to(z.dtype)
+
+
 class VAEScorer(_ChunkedScorer):
     """Resident VAE one-class scorer over an ``OCMBundle``, single or
     multi-class.
@@ -155,8 +314,13 @@ class VAEScorer(_ChunkedScorer):
     function of the network outputs.
 
     The chunks go to the bundle's device in the bundle's dtype.
-    ``compute_dtype`` (a bf16 serving twin) comes with ROADMAP.md queue 1
-    item 8, ``mesh`` with item 14.
+    ``compute_dtype=torch.bfloat16`` is the reduced-precision twin: the
+    network passes of every variant run under ``torch.autocast`` in bf16
+    on the bundle's device type, and latents and reconstructions are
+    widened back to the bundle's dtype before any statistic, so every
+    output other than ``accept`` keeps it.  The twin takes a float32
+    bundle (autocast does not reduce float64).  ``mesh`` comes with
+    ROADMAP.md queue 1 item 14.
     """
 
     def __init__(self, model: ConvVAE1D, bundle: OCMBundle,
@@ -168,10 +332,16 @@ class VAEScorer(_ChunkedScorer):
             raise ValueError(
                 "pin_f_stats applies only to variant='f' (the quirk-Q3 "
                 f"batch statistics); got variant={variant!r}")
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype= (a reduced-precision serving twin) comes "
-                "with ROADMAP.md queue 1 item 8")
+        if compute_dtype not in (None, torch.bfloat16):
+            raise ValueError("compute_dtype supports torch.bfloat16 (the "
+                             f"reduced-precision twin); got {compute_dtype}")
+        if compute_dtype is not None and (bundle.spec_mean.dtype
+                                          != torch.float32):
+            # autocast leaves float64 tensors as they are: the twin would
+            # quietly run at full width
+            raise ValueError("compute_dtype=torch.bfloat16 reduces a "
+                             "float32 bundle's network passes; this bundle "
+                             f"is {bundle.spec_mean.dtype}")
         # a stacked bundle has a class axis on every leaf; key the
         # detection on latent_mean ((k,) or (C, k)), so a single-class
         # bundle with a (1,)-shaped threshold stays single-class
@@ -244,6 +414,8 @@ class VAEScorer(_ChunkedScorer):
         if variant != "vaesimca":
             vms = [None] * n_cls
         self.modules = [bind(model, b) for b in bundles]
+        if compute_dtype is not None:
+            self.modules = [_Bf16Twin(m) for m in self.modules]
         classes = list(zip(self.modules, bundles, vms))
 
         def decide(xc):
@@ -253,9 +425,13 @@ class VAEScorer(_ChunkedScorer):
                         for k in outs[0]}
             return outs[0]
 
-        super().__init__(decide, bundle.spec_mean.device,
-                         bundle.spec_mean.dtype, chunk_size, mesh,
-                         post_fn=post)
+        self._device, self._dtype = (bundle.spec_mean.device,
+                                     bundle.spec_mean.dtype)
+        super().__init__(decide, chunk_size, mesh, post_fn=post)
+
+    def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
+        return (torch.as_tensor(chunk, dtype=self._dtype,
+                                device=self._device),)
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, model: ConvVAE1D, **kwargs):

@@ -31,9 +31,10 @@ def test_import_pulls_in_no_jax():
             "ocm_tpu_torch.models.bundle, ocm_tpu_torch.models.trainer, "
             "ocm_tpu_torch.models.vae_decision, ocm_tpu_torch.models.vaesimca, "
             "ocm_tpu_torch.serving, ocm_tpu_torch.stats.qhf, "
-            "ocm_tpu_torch.stats.metrics; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'ocm_tpu' or m.startswith('ocm_tpu.')]; print(bad); "
+            "ocm_tpu_torch.stats.metrics, ocm_tpu_torch.models.streaming, "
+            "ocm_tpu_torch.ops.preprocess, ocm_tpu_torch.probes.int8; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'ocm_tpu', 'ml_dtypes')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -53,7 +54,8 @@ def test_sources_import_no_jax(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "ocm_tpu"), (path, name)
+            assert top not in ("jax", "jaxlib", "flax", "ocm_tpu",
+                               "ml_dtypes"), (path, name)
 
 
 def test_numpy_input_without_device_needs_cuda():
@@ -123,7 +125,33 @@ def test_cpu_sample_wrapper_counts_no_launch_and_refuses_grad():
             torch.zeros(2, 12))
 
 
+def test_cpu_int8_wrappers_do_not_count_launches():
+    gen = torch.Generator().manual_seed(0)
+    xq = torch.randint(-127, 128, (12, 10), dtype=torch.int8, generator=gen)
+    before = (kernels.int8_tile_sum.launches, kernels.int8_gemm_s32.launches,
+              kernels.t2q_scores_multiclass.launches_bf16)
+    assert kernels.int8_tile_sum(xq, 4).shape == (3,)
+    assert kernels.int8_gemm_s32(xq, xq[:5]).shape == (12, 5)
+    assert kernels.int8_gemm_s32(xq, xq[:5], tile=3).shape == (4, 5)
+    x = torch.randn(6, 10, generator=gen).to(torch.bfloat16)
+    kernels.t2q_scores_multiclass(x, torch.zeros(1, 10), torch.eye(10)[None, :2],
+                                  torch.eye(2)[None])
+    assert (kernels.int8_tile_sum.launches, kernels.int8_gemm_s32.launches,
+            kernels.t2q_scores_multiclass.launches_bf16) == before
+    with pytest.raises(ValueError, match="divide"):
+        kernels.int8_tile_sum(xq, 5)
+    with pytest.raises(ValueError, match="divide"):
+        kernels.int8_gemm_s32(xq, xq[:5], tile=0)
+    with pytest.raises(ValueError, match="must be"):
+        kernels.int8_gemm_s32(xq, xq[:5, :4])
+
+
 def test_non_cpu_non_cuda_tensor_raises():
+    xq = torch.zeros(4, 8, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.int8_tile_sum(xq, 2)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.int8_gemm_s32(xq, xq)
     x = torch.zeros(4, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.t2q_scores_multiclass(x, x[:1], x[None, :1], x[None, :1, :1])
@@ -282,3 +310,104 @@ def test_reparam_sample_kernel_matches_plain_twin(cuda, shape):
                                                          offset)[0], z)
         assert not torch.equal(kernels.reparam_kl_sample(mu, lv, seed,
                                                          offset + 1)[0], z)
+
+
+# (N, L, tile): the probe's --small shape, a headline tile cut in N, a
+# ragged one (L 203: tiles not 16-byte aligned, read byte by byte), a tile
+# of 8 rows under the K8 block of 64, one tile holding every row
+INT8_CASES = [(1024, 128, 256), (4096, 512, 512), (1000, 203, 8),
+              (640, 500, 64), (96, 36, 96)]
+
+
+def _int8(shape, gen, cuda):
+    return torch.randint(-127, 128, shape, dtype=torch.int8,
+                         generator=gen).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_CASES, ids=str)
+def test_int8_tile_sum_matches_plain_twin(cuda, case):
+    n, length, tile = case
+    xq = _int8((n, length), torch.Generator().manual_seed(3), cuda)
+    before = kernels.int8_tile_sum.launches
+    got = kernels.int8_tile_sum(xq, tile)
+    torch.cuda.synchronize()
+    assert kernels.int8_tile_sum.launches == before + 1
+    assert torch.equal(got, kernels.int8_tile_sum_plain(xq, tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_CASES, ids=str)
+def test_int8_gemm_tile_sums_match_plain_twin(cuda, case):
+    n, length, tile = case
+    gen = torch.Generator().manual_seed(4)
+    xq, w = _int8((n, length), gen, cuda), _int8((128, length), gen, cuda)
+    before = kernels.int8_gemm_s32.launches
+    got = kernels.int8_gemm_s32(xq, w, tile)
+    torch.cuda.synchronize()
+    assert kernels.int8_gemm_s32.launches == before + 1
+    assert torch.equal(got, kernels.int8_gemm_s32_plain(xq, w, tile))
+
+
+# (N, L, M): the scoring shape cut in N (3 classes, k 10: 2 x 33 columns),
+# ragged rows and L, a column count that is not a multiple of 4, one
+# column, and more columns than one block holds
+GEMM_CASES = [(4096, 500, 66), (1001, 203, 66), (257, 96, 7), (64, 4, 1),
+              (300, 64, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GEMM_CASES, ids=str)
+def test_int8_gemm_store_matches_plain_twin(cuda, case):
+    n, length, m = case
+    gen = torch.Generator().manual_seed(5)
+    xq, w = _int8((n, length), gen, cuda), _int8((m, length), gen, cuda)
+    got = kernels.int8_gemm_s32(xq, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (n, m)
+    assert torch.equal(got, kernels.int8_gemm_s32_plain(xq, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(4096, 500, 3, 10), (300, 203, 2, 40),
+                                  (137, 96, 1, 8)], ids=str)
+def test_bf16_kernel_matches_plain_twin(cuda, case):
+    n, length, c, k = case
+    gen = torch.Generator().manual_seed(6)
+    x = (0.1 * torch.randn(n, length, generator=gen)).to(cuda, torch.bfloat16)
+    means = 0.05 * torch.randn(c, length, generator=gen)
+    comps = torch.linalg.qr(torch.randn(c, length, k, generator=gen))[0].mT
+    a = torch.randn(c, k, k, generator=gen)
+    args = [x] + [t.to(cuda, torch.float32).contiguous()
+                  for t in (means, comps, a @ a.mT / k + torch.eye(k))]
+    before = (kernels.t2q_scores_multiclass.launches,
+              kernels.t2q_scores_multiclass.launches_bf16)
+    t2, q = kernels.t2q_scores_multiclass(*args)
+    torch.cuda.synchronize()
+    assert (kernels.t2q_scores_multiclass.launches,
+            kernels.t2q_scores_multiclass.launches_bf16) == (
+        before[0], before[1] + 1)
+    t2_p, q_p = kernels.t2q_scores_multiclass_plain(*args)
+    xc2 = ((args[0].float()[None] - args[1][:, None]) ** 2).sum(-1)
+    # the same widened values on both sides: f32 sums in another order
+    torch.testing.assert_close(t2, t2_p, rtol=1e-4,
+                               atol=1e-6 * t2_p.abs().mean().item())
+    assert torch.all((q - q_p).abs() <= 1e-4 * xc2)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_reject_other_dtypes(cuda):
+    x = torch.zeros(8, 4, dtype=torch.int16, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        kernels.int8_tile_sum(x, 2)
+    with pytest.raises(TypeError, match="int8"):
+        kernels.int8_gemm_s32(x, x)
+
+
+@pytest.mark.cuda
+def test_uint16_chunk_widens_on_the_card(cuda):
+    """The raw-ingest scorer ships uint16 counts and widens them on the
+    card: torch must convert a uint16 CUDA tensor to f32."""
+    counts = np.array([[0, 1, 65535, 40000]], dtype=np.uint16)
+    got = torch.from_numpy(counts).to(cuda).to(torch.float32)
+    assert got.cpu().numpy().tolist() == [[0.0, 1.0, 65535.0, 40000.0]]

@@ -32,6 +32,34 @@ def make_data(seed=0, n_cal=N_CAL, length=LENGTH, n_classes=N_CLASSES,
     return cals, np.concatenate(parts)
 
 
+def simca_numpy_tree(model):
+    """A JAX ``SIMCAModel`` as the dict ``save_simca_model`` serializes."""
+    return {f: ({k: np.array(a) for k, a in v._asdict().items()}
+                if hasattr(v, "_asdict") else np.array(v))
+            for f, v in zip(model._fields, model)}
+
+
+def simca_classes_pair(x, n_classes=N_CLASSES, k=K, solver="rsvd"):
+    """JAX's ``fit_classes`` of ``x`` (equal consecutive class blocks, in
+    x's dtype) and the same models carried into the port (CPU): the
+    serving tests hold both scorers to one set of models."""
+    import jax.numpy as jnp
+
+    from ocm_tpu.models import simca as JS
+    from ocm_tpu_torch.models import simca as TS
+
+    y = np.repeat(np.arange(n_classes), x.shape[0] // n_classes)
+    ref = JS.fit_classes(jnp.asarray(x), y, list(range(n_classes)), k,
+                         solver=solver)
+    return ref, TS.simca_model_from_numpy(simca_numpy_tree(ref), device="cpu")
+
+
+def counts_u16(x):
+    """Camera counts of spectra ``x``: ``clip(round(5000 (x + 6)))`` as
+    uint16, the raw-ingest serving mode's input."""
+    return np.clip(np.round(5000.0 * (x + 6.0)), 0, 65535).astype(np.uint16)
+
+
 # --- the VAE slice ---------------------------------------------------------
 
 # the parity tests' small ConvVAE1D (the entry model is L 501, latent 16,
