@@ -1,6 +1,11 @@
 """Chip smoke run of the PyTorch/CUDA port (``ocm_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # every phase below
+    python3 chip_smoke.py --kernel-times    # K2, K7, K8 timings only
+
+``--kernel-times`` times the kernels of the package beside the script;
+a copy of the script placed in an unpacked older tree times that tree's,
+so two versions are compared in turns within one chip call.
 
 Drives the port's four paths at full width and holds every hand-written
 CUDA kernel against its plain PyTorch twin:
@@ -32,19 +37,23 @@ Phases, each of which exits non-zero on failure:
 1. device and numerics: card name and power limit, TF32 off, cuDNN's
    deterministic mode (selected when the package loads);
 2. build: the kernel library (one nvcc per source, in parallel, sm_90a),
-   and every kernel's registers, shared memory and spills;
+   every kernel's registers, shared memory and spills, and its SASS's
+   tensor-core (IMMA/IGMMA/HMMA/HGMMA) and dp4a (IDP) instructions: K8's
+   tensor-core kernel must have the first and none of the second;
 3. K1 vs its plain twin at the bench shapes and three other shapes;
 4. SIMCA main path: launches counted, limits finite and positive, the
    card's f32 fit against the port's own f64 CPU fit of the same data;
 5. SIMCA timings with CUDA events (median after warm-up);
 6. K2/K3 vs their twins at the six BatchNorm shapes of the train step
-   (plus GELU and no activation), K4 at (64, 16) and (300, 5), and K6's
-   gradients against autograd through the plain twin;
+   (plus GELU and no activation), with K2's cluster size at each, K4 at
+   (64, 16) and (300, 5), and K6's gradients against autograd through the
+   plain twin;
 7. VAE main path: launches counted (exactly 1200 K2, 1200 K3, 220 K4),
    finite and falling losses, one train step on the card in f32 against
    the port's CPU f64, and the entry model's forward and cosine loss;
 8. VAE timings: one train step, the 20-epoch run, and each kernel beside
-   its bound, its twin and the nearest PyTorch call;
+   its bound, its twin and the nearest PyTorch call (K2 over inputs that
+   rotate past the L2, and L2-warm);
 9. K5 vs its plain twin at (512, 16), (65,536, 16) and (300, 5): the
    kernel's own noise, z and KL, determinism and keying, and the noise's
    moments, Kolmogorov-Smirnov distance and neighbour correlations;
@@ -81,11 +90,14 @@ prints no result.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -116,6 +128,9 @@ SEED = 0
 VAE_KW = dict(input_length=501, latent_dim=16, conv_blocks=3, n_filters=32,
               kernel_size=9, stride=2, hidden_fc=256, activation="elu")
 VAE_N, VAE_BATCH, VAE_EPOCHS = 640, 64, 20
+# the (B, C, L) of each BatchNorm of the entry model in one train step
+TRAIN_BN_SHAPES = [(64, 32, 501), (64, 64, 251), (64, 128, 126),
+                   (64, 64, 252), (64, 32, 504), (64, 32, 504)]
 BN_EPS = 1e-5
 # f32 operations per element (the TPU kernels' own cost estimates,
 # ocm_tpu/ops/bn.py:140,162) and per latent entry of K4
@@ -140,6 +155,8 @@ SRV_MODES = ("f32", "bf16", "int8", "raw-u16")
 # (bytes/s, f32 FLOP/s outside the tensor cores, int8 tensor-core OP/s):
 # NVIDIA data sheets, dense (the int8 sheets' sparse figures halved), at
 # the full power limit
+# the H100's and H200's L2 cache
+L2_BYTES = 50e6
 PEAKS = {"H100 PCIe": (2.0e12, 51e12, 1513e12),
          "H100 NVL": (3.9e12, 60e12, 1671e12),
          "H200": (4.8e12, 67e12, 1979e12), "H100": (3.35e12, 67e12, 1979e12)}
@@ -303,6 +320,41 @@ def resource_report(logs):
     return lines
 
 
+# kernels whose SASS must hold tensor-core instructions and no dp4a
+TENSOR_CORE_KERNELS = {"int8.cu": "gemm_s8_mma_kernel"}
+
+
+def sass_report():
+    """Phase 2, SASS: per kernel of every object, its tensor-core integer
+    and float instructions (IMMA, IGMMA, HMMA, HGMMA) and its dp4a (IDP),
+    from ``cuobjdump -sass``.  Fails if a kernel of TENSOR_CORE_KERNELS has
+    no tensor-core instruction or any IDP."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    rows = []
+    for source in _build.SOURCES:
+        text = subprocess.run([tool, "-sass", str(_build.object_path(source))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for chunk in text.split("Function : ")[1:]:
+            name, _, body = chunk.partition("\n")
+            row = {"source": source, "kernel": name.strip(),
+                   "tensor_core": len(re.findall(r"\b[IH]G?MMA\b", body)),
+                   "idp": len(re.findall(r"\bIDP\b", body))}
+            rows.append(row)
+            print(f"sass {source}: {row['kernel'][:70]} "
+                  f"tensor_core={row['tensor_core']} idp={row['idp']}",
+                  flush=True)
+    for source, kernel in TENSOR_CORE_KERNELS.items():
+        found = [r for r in rows if r["source"] == source
+                 and kernel in r["kernel"]]
+        check(bool(found), f"no {kernel} in {source}'s SASS")
+        for r in found:
+            check(r["tensor_core"] > 0 and r["idp"] == 0,
+                  f"{r['kernel']}: {r['tensor_core']} tensor-core and "
+                  f"{r['idp']} IDP instructions")
+
+
 def vae_workload(seed=2, n=VAE_N, length=VAE_KW["input_length"]):
     """bench_all.py's VAE training set: one smooth class, f32."""
     rng = np.random.default_rng(seed)
@@ -342,6 +394,7 @@ def compare_bn(shape, act, gen, dev):
     for n, a in zip(names, got):
         check(bool(torch.isfinite(a).all()), f"BN {shape} {act}: {n} not finite")
     print(json.dumps({"phase": "bn_vs_plain", "shape": shape, "act": act,
+                      "k2_cluster": bn.k2_cluster_size(*shape),
                       "rel_err_of_scale": errs}), flush=True)
     for n, e in errs.items():
         check(e <= 1e-4, f"BN {shape} {act}: {n} error {e} > 1e-4 of scale")
@@ -536,9 +589,16 @@ def library_bn(x, g, b, act):
 
 
 def time_bn(shapes, gen, dev, bw, f32_rate):
-    """Per-shape K2/K3 records summed over one train step's six shapes."""
-    tot = {f"{k}_{key}": 0.0 for k in ("k2", "k3") for key in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "call_ms")}
+    """Per-shape K2/K3 records summed over one train step's six shapes.
+    K2, its twin and its library call are timed twice: over rotating inputs
+    that together exceed twice the L2 (``*_ms``: each call reads x from
+    device memory, as the bound is priced) and on one input, L2-warm as the
+    train step sees its activations (``*_warm_ms``)."""
+    tot = {f"k2_{key}": 0.0 for key in (
+        "ms", "warm_ms", "plain_ms", "plain_warm_ms", "library_ms",
+        "library_warm_ms", "bound_ms", "call_ms")}
+    tot.update({f"k3_{key}": 0.0 for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "call_ms")})
     bound_by = {"k2": set(), "k3": set()}
     for shape in shapes:
         x, g, b, dout = bn_inputs(shape, gen, dev)
@@ -547,13 +607,24 @@ def time_bn(shapes, gen, dev, bw, f32_rate):
         y_lib = library_bn(xr, gr, br, "elu")
         n = x.numel()
         nc = shape[1]
+        count = max(2, math.ceil(2 * L2_BYTES / (8 * n)))   # x and out
+        xs = [x] + [x + 1e-3 * i for i in range(1, count)]
+        reps = 2 * count
         k2 = (8 * n + 16 * nc, K2_OPS * n)
         k3 = (12 * n + 24 * nc, K3_OPS * n)
-        row = {"shape": shape,
-               "k2_ms": device_ms(lambda: bn.bn_act_fwd(x, g, b)),
-               "k2_plain_ms": device_ms(
+        row = {"shape": shape, "rotated_inputs": count,
+               "k2_ms": int8_probe.device_ms(
+                   lambda a: bn.bn_act_fwd(a, g, b), xs, reps),
+               "k2_warm_ms": device_ms(lambda: bn.bn_act_fwd(x, g, b)),
+               "k2_plain_ms": int8_probe.device_ms(
+                   lambda a: bn.bn_act_fwd_plain(a, g, b, BN_EPS, "elu"), xs,
+                   reps),
+               "k2_plain_warm_ms": device_ms(
                    lambda: bn.bn_act_fwd_plain(x, g, b, BN_EPS, "elu")),
-               "k2_library_ms": device_ms(lambda: library_bn(x, g, b, "elu")),
+               "k2_library_ms": int8_probe.device_ms(
+                   lambda a: library_bn(a, g, b, "elu"), xs, reps),
+               "k2_library_warm_ms": device_ms(
+                   lambda: library_bn(x, g, b, "elu")),
                "k2_call_ms": median_ms(lambda: bn.bn_act_fwd(x, g, b), 3, 21),
                "k3_ms": device_ms(
                    lambda: bn.bn_act_bwd(x, g, b, mean, var, dout)),
@@ -563,6 +634,7 @@ def time_bn(shapes, gen, dev, bw, f32_rate):
                    y_lib, (xr, gr, br), dout, retain_graph=True)),
                "k3_call_ms": median_ms(
                    lambda: bn.bn_act_bwd(x, g, b, mean, var, dout), 3, 21)}
+        del xs
         for key, (nbytes, ops) in (("k2", k2), ("k3", k3)):
             bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * ops / f32_rate
             row[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
@@ -1304,6 +1376,47 @@ def kernel_timing(fn, plain, inputs, bound, library=None, plain_reps=10):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def int8_kernel_timings(dev, gen, bw, int8_rate, xq, wq):
+    """K7 and K8 at the probe's tiles and K8 at the scoring shape, each
+    beside its bound, twin and library call: {name: timing record}."""
+    out = {}
+    inputs = int8_probe.rotated(xq)
+    n, lp = xq.shape
+    w = wq.T.contiguous()                      # K8 takes (M, L)
+    for tile in PROBE_TILES:
+        read = kernel_timing(
+            lambda a, t=tile: kernels.int8_tile_sum(a, t),
+            lambda a, t=tile: kernels.int8_tile_sum_plain(a, t), inputs,
+            (n * lp + 4 * (n // tile), n * lp, bw, int8_rate),
+            library=lambda a, t=tile: kernels.int8_tile_sum_plain(a, t))
+        gemm = kernel_timing(
+            lambda a, t=tile: kernels.int8_gemm_s32(a, w, t),
+            lambda a, t=tile: kernels.int8_gemm_s32_plain(a, w, t), inputs,
+            (n * lp + lp * 128 + 4 * (n // tile) * 128, 2 * n * lp * 128, bw,
+             int8_rate),
+            library=lambda a: torch._int_mm(a, wq), plain_reps=3)
+        out[f"k7 t={tile}"], out[f"k8 t={tile}"] = read, gemm
+    del inputs
+    # K8 at the scoring shape (one chunk against 2 (C k + C) columns), and
+    # torch._int_mm on copies zero-padded to K 504 and N 72 (its rules)
+    m = 2 * (N_CLASSES * K + N_CLASSES)
+    w = torch.randint(-127, 128, (m, LENGTH), dtype=torch.int8,
+                      generator=gen).to(dev)
+    chunks = [torch.randint(-127, 128, (SRV_CHUNK, LENGTH), dtype=torch.int8,
+                            generator=gen).to(dev) for _ in range(5)]
+    pad_k, pad_n = -(-LENGTH // 8) * 8, -(-m // 8) * 8
+    w_pad = F.pad(w, (0, pad_k - LENGTH, 0, pad_n - m)).T.contiguous()
+    padded = {id(c): F.pad(c, (0, pad_k - LENGTH)) for c in chunks}
+    out["k8 store"] = kernel_timing(
+        lambda a: kernels.int8_gemm_s32(a, w),
+        lambda a: kernels.int8_gemm_s32_plain(a, w), chunks,
+        (SRV_CHUNK * LENGTH + m * LENGTH + 4 * SRV_CHUNK * m,
+         2 * SRV_CHUNK * LENGTH * m, bw, int8_rate),
+        library=lambda a: torch._int_mm(padded[id(a)], w_pad), plain_reps=3)
+    del chunks, padded
+    return out
+
+
 def serving_timings(dev, card, rates, models, scorers, x, counts, xq, wq,
                     cal32, labels, gen, decisions):
     """Phase 16: screens (numpy in, numpy out) and their split, the
@@ -1347,41 +1460,7 @@ def serving_timings(dev, card, rates, models, scorers, x, counts, xq, wq,
             lambda: twin.score(x_test), 1, 3)
     print(json.dumps(line), flush=True)
 
-    out = {}
-    inputs = int8_probe.rotated(xq)
-    n, lp = xq.shape
-    w = wq.T.contiguous()                      # K8 takes (M, L)
-    for tile in PROBE_TILES:
-        read = kernel_timing(
-            lambda a, t=tile: kernels.int8_tile_sum(a, t),
-            lambda a, t=tile: kernels.int8_tile_sum_plain(a, t), inputs,
-            (n * lp + 4 * (n // tile), n * lp, bw, int8_rate),
-            library=lambda a, t=tile: kernels.int8_tile_sum_plain(a, t))
-        gemm = kernel_timing(
-            lambda a, t=tile: kernels.int8_gemm_s32(a, w, t),
-            lambda a, t=tile: kernels.int8_gemm_s32_plain(a, w, t), inputs,
-            (n * lp + lp * 128 + 4 * (n // tile) * 128, 2 * n * lp * 128, bw,
-             int8_rate),
-            library=lambda a: torch._int_mm(a, wq), plain_reps=3)
-        out[f"k7 t={tile}"], out[f"k8 t={tile}"] = read, gemm
-    del inputs
-    # K8 at the scoring shape (one chunk against 2 (C k + C) columns), and
-    # torch._int_mm on copies zero-padded to K 504 and N 72 (its rules)
-    m = 2 * (N_CLASSES * K + N_CLASSES)
-    w = torch.randint(-127, 128, (m, LENGTH), dtype=torch.int8,
-                      generator=gen).to(dev)
-    chunks = [torch.randint(-127, 128, (SRV_CHUNK, LENGTH), dtype=torch.int8,
-                            generator=gen).to(dev) for _ in range(5)]
-    pad_k, pad_n = -(-LENGTH // 8) * 8, -(-m // 8) * 8
-    w_pad = F.pad(w, (0, pad_k - LENGTH, 0, pad_n - m)).T.contiguous()
-    padded = {id(c): F.pad(c, (0, pad_k - LENGTH)) for c in chunks}
-    out["k8 store"] = kernel_timing(
-        lambda a: kernels.int8_gemm_s32(a, w),
-        lambda a: kernels.int8_gemm_s32_plain(a, w), chunks,
-        (SRV_CHUNK * LENGTH + m * LENGTH + 4 * SRV_CHUNK * m,
-         2 * SRV_CHUNK * LENGTH * m, bw, int8_rate),
-        library=lambda a: torch._int_mm(padded[id(a)], w_pad), plain_reps=3)
-    del chunks, padded
+    out = int8_kernel_timings(dev, gen, bw, int8_rate, xq, wq)
     # bf16 K1 at the serving shape: one chunk of bf16 residuals
     center = torch.as_tensor(scorers["f32"].center, device=dev)
     means = (models.mean - center).contiguous()
@@ -1476,7 +1555,31 @@ def serving_phases(dev, card, rates, decisions):
                "ocm_tpu/ops/kernels.py:45")]
 
 
-def main() -> int:
+def kernel_times(dev, card, name):
+    """``--kernel-times``: only the timings of K2 (the train step's six
+    shapes) and K7/K8 (the probe's tiles, the scoring shape), through the
+    package beside this file.  A copy of this script in another tree of the
+    repo times that tree's kernels the same way, so two versions can be
+    timed in turns within one chip call."""
+    bw, f32_rate, int8_rate = peaks(name)
+    _build.library()
+    bn_t, _ = time_bn(TRAIN_BN_SHAPES, torch.Generator().manual_seed(0), dev,
+                      bw, f32_rate)
+    n, lp, _ = int8_probe.HEADLINE
+    xq, wq = int8_probe.make_inputs(n, lp, dev)
+    int8_t = int8_kernel_timings(dev, torch.Generator().manual_seed(13), bw,
+                                 int8_rate, xq, wq)
+    print(json.dumps({"phase": "kernel_times", "card": card,
+                      "package": os.path.dirname(os.path.dirname(
+                          os.path.abspath(bn.__file__))),
+                      "bn": bn_t, "int8": int8_t}), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="time K2, K7 and K8 only (see kernel_times)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
@@ -1500,6 +1603,9 @@ def main() -> int:
                           torch.get_float32_matmul_precision()}), flush=True)
     check(torch.backends.cudnn.deterministic,
           "loading ocm_tpu_torch did not select cuDNN's deterministic mode")
+    if args.kernel_times:
+        kernel_times(dev, card, name)
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -1509,6 +1615,7 @@ def main() -> int:
                       "library": _build.library_path().name}), flush=True)
     for line in resource_report(_build.build_logs()):
         print(line, flush=True)
+    sass_report()
 
     cals, xs = make_data()
     cals32 = cals.astype(np.float32)
@@ -1611,9 +1718,8 @@ def main() -> int:
 
     # 6. the VAE kernels against their plain twins at the path's shapes
     shapes = path_bn_shapes(dev)
-    expected = [(64, 32, 501), (64, 64, 251), (64, 128, 126), (64, 64, 252),
-                (64, 32, 504), (64, 32, 504)]
-    check(shapes == expected, f"BatchNorm shapes {shapes} != {expected}")
+    check(shapes == TRAIN_BN_SHAPES,
+          f"BatchNorm shapes {shapes} != {TRAIN_BN_SHAPES}")
     gen = torch.Generator().manual_seed(0)
     k2_err = k3_err = 0.0
     for shape, act in [(sh, "elu") for sh in shapes] + [

@@ -1,10 +1,11 @@
-// Helpers shared by the port's CUDA sources: warp and block sums.
+// Helpers shared by the port's CUDA sources: warp, block and cluster sums.
 //
 // Each source is its own translation unit, so everything here is inline
 // and in an anonymous namespace.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -34,6 +35,35 @@ __device__ __forceinline__ float2 block_sum2(float a, float b,
   }
   __syncthreads();
   return scratch[0];
+}
+
+// Sums (a, b) over every block of the thread block cluster and returns the
+// totals to every thread of each block.  Each block publishes its own sum
+// in scratch[0] (block_sum2), cluster.sync() makes them visible, and every
+// thread adds its peers' through distributed shared memory in rank order,
+// so all blocks hold the same totals bit for bit.  It then arrives on the
+// cluster barrier; the caller must call cluster_sum2_wait() before the
+// block exits, so that no block's shared memory goes while its peers may
+// still read it (the wait is left to the end, off the critical path).
+// Every thread of every block of the cluster calls both.
+__device__ __forceinline__ float2 cluster_sum2(float a, float b,
+                                               float2* scratch) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  block_sum2(a, b, scratch);
+  cluster.sync();
+  float2 tot = make_float2(0.f, 0.f);
+  for (unsigned r = 0; r < cluster.num_blocks(); ++r) {
+    const float2 v = *cluster.map_shared_rank(scratch, r);
+    tot.x += v.x;
+    tot.y += v.y;
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  return tot;
+}
+
+__device__ __forceinline__ void cluster_sum2_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 }  // namespace

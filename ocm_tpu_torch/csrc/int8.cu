@@ -28,26 +28,49 @@
 //   reduced in the kernel, (N / tile, M), no (N, M) write (the probe,
 //   98,304 x 512 x 128: bytes 50.3 MB -> 0.0150 ms; 12.9 G int8 operations
 //   -> 0.0065 ms at the tensor cores' 1,979 TOP/s).
-// What bounds this first design is its arithmetic, not the bytes: it runs on
-// the CUDA cores with __dp4a (four int8 multiply-adds into an int32), not on
-// the tensor cores (mma.sync / wgmma .s8 are later work).  The rate assumed:
-// one dp4a per lane every other clock (64 an SM a clock, the Hopper rate of
-// 32-bit integer multiply-add), 132 SMs at ~1.75 GHz: ~14.8 T dp4a/s,
-// ~118 T int8 operations/s, so ~0.11 ms at the probe's shape.
-// The design keeps the dp4a issue fed from shared memory:
-// - a block of 256 threads owns 64 rows x BN = 16 TN columns (TN = 1..8,
-//   chosen from M so that 66 columns waste 14 of 80, not 62 of 128) and
-//   walks L in steps of 128 bytes, staging x and w as 32-bit words
-//   (coalesced: a warp reads one 128-byte row segment);
-// - each thread holds a 4 x TN tile of int32 sums; per 16 bytes of L it
-//   reads 4 + TN int4 words from shared memory (rows padded to 144 bytes:
-//   no bank conflicts, broadcasts for x) for 16 TN dp4a.
+// Both shapes are bound by the bytes of x, and w is tiny (33-64 KB).  The
+// design (gemm_s8_mma_kernel) follows from that:
+// - w resident in shared memory: each block copies its column tile of w
+//   (BN = 16 NT <= 128 columns) once, zero past L and past M, at a row
+//   stride of 16 mod 128 bytes (the B fragments' 32-bit loads are free of
+//   bank conflicts), and keeps it for its whole life;
+// - persistent blocks, one a SM, each over a contiguous range of row tiles
+//   of 64 rows, fed through a ring of 2-4 stages by cp.async.bulk (one
+//   thread, mbarrier completion).  Consecutive rows of a contiguous (N, L)
+//   array are one contiguous span, and 8 L is a multiple of 16, so a tile
+//   goes in 8 bulk copies of 8 rows each, although a 500-byte row is only
+//   4-byte aligned (2-D TMA cannot describe that array: its global strides
+//   are multiples of 16 B).  The pieces land at a stride of 16 mod 128
+//   bytes, and fragment row g is taken from piece g (rows 8 g + 2 wm and
+//   8 g + 2 wm + 1 of the tile for warp row wm), so the 8 rows of a
+//   fragment lie 4 banks apart at any L, where a stride of 512 B (the
+//   probe) would put them all in one bank.  (Copies of single rows, 64 a
+//   tile from the one issuing thread, made the probe 1.4x slower on an
+//   H100.)  A ragged last piece's tail (< 16 B) is copied by the issuing
+//   thread before it arrives;
+// - the tensor cores, exactly: mma.sync m16n8k32 s8 x s8 -> s32, A
+//   fragments read from the staged pieces by 32-bit shared loads, B from
+//   the resident w.  8 warps: 4 along the tile's rows x 2 along the columns
+//   (NT n8 tiles each);
+// - the tail of L needs no mask: the K loop runs to L rounded up to 32, w's
+//   copy is zero there, so whatever bytes A reads past a row's end (the
+//   next row, a piece's 32-byte pad) multiply zero;
+// - epilogues from registers: the store writes 8-byte pairs (a row of 66
+//   int32 is 264 B, 8-aligned); the tile sums add each warp's rows in
+//   registers while they belong to one output tile (tile % 64 == 0) and
+//   issue one integer atomicAdd per (warp, tile, column) when it changes,
+//   or one per element for other tiles.
 // Every partial sum is exact: |x|, |w| <= 127, so |x w^T| <= 127^2 L, below
 // 2^31 for L <= 2^17.  The tile sums add those in unsigned (mod 2^32)
 // arithmetic, like the TPU's int32 sums; the plain twin wraps the same way.
-// Any N, L, M: ragged rows and columns are masked, the tail of L is zero in
-// shared memory; rows that are not 4-byte aligned (L % 4 != 0) are staged
-// byte by byte.
+//
+// The first design, __dp4a on the CUDA cores (gemm_s8_dp4a_kernel, 52 TOP/s
+// on an H100: operation-bound where the shapes are byte-bound), stays for
+// what the bulk copies cannot take: rows not 4-byte aligned (L % 4 != 0),
+// an x not 16-byte or a w not 4-byte aligned, and rows so long that w and
+// two stages exceed the 227 KB of shared memory (L above ~1,500).  It
+// stages 32-bit words (bytes where rows are not 4-byte aligned) of 64 rows
+// x 16 TN columns a block, 128 bytes of L a step.
 
 #include <cuda_runtime.h>
 
@@ -111,7 +134,329 @@ __global__ void __launch_bounds__(kReadThreads)
   }
 }
 
-// --- K8 ----------------------------------------------------------------------
+// --- K8 on the tensor cores ------------------------------------------------
+
+constexpr int kTileRows = 64;                  // rows of x a staged tile
+constexpr int kMmaThreads = 256;               // 4 (rows) x 2 (columns) warps
+constexpr int kMaxStages = 4;
+constexpr int kBarBytes = 128;                 // the stages' mbarriers
+
+struct MmaParams {
+  const int8_t* x;
+  const int8_t* w;
+  int* out;
+  int n, l, m, tile;
+  int lp;            // l rounded up to 32: the K loop's extent
+  int piece;         // stride of a staged tile's 8-row pieces, bytes
+  int wst;           // row stride of the resident w, bytes
+  int stages, stage_bytes, w_bytes;
+  int tiles;         // row tiles of kTileRows
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+// One arrival that also expects `bytes` of asynchronous copies.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Global -> shared bulk copy of `bytes` (a multiple of 16, both ends
+// 16-byte aligned), completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a b for one m16n8k32 s8 tile (A row-major, B column-major).
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Thread 0: start the copy of row tile `t` into stage buffer `dst`: its
+// 64 rows as 8 pieces of 8 consecutive rows (8 L bytes, 16-byte aligned
+// since L % 4 == 0), piece P at P * piece.  A ragged last piece's tail
+// (< 16 B) is copied here, before the arrival that releases it.
+__device__ void issue_tile(const MmaParams& p, int t, unsigned char* dst,
+                           uint64_t* bar) {
+  const int row0 = t * kTileRows;
+  const int rows = min(kTileRows, p.n - row0);
+  const int8_t* src = p.x + (size_t)row0 * p.l;
+  uint32_t bulk = 0;
+  for (int r = 0; r < rows; r += 8) {
+    const uint32_t bytes = min(8, rows - r) * p.l, main = bytes & ~15u;
+    for (uint32_t b = main; b < bytes; ++b)
+      dst[(r / 8) * p.piece + b] = src[(size_t)r * p.l + b];
+    bulk += main;
+  }
+  mbar_arrive_tx(bar, bulk);
+  for (int r = 0; r < rows; r += 8) {
+    const uint32_t main = (min(8, rows - r) * p.l) & ~15u;
+    if (main)
+      bulk_copy(dst + (r / 8) * p.piece, src + (size_t)r * p.l, main, bar);
+  }
+}
+
+// Add each of this lane's column pair over the warp's 16 rows and add it
+// to output row `o` of the tile sums.
+template <int NT>
+__device__ __forceinline__ void flush_sums(const MmaParams& p,
+                                           uint32_t (&run)[NT][2], int o,
+                                           int col_base, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t v = run[j][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      const int col = col_base + 8 * j + 2 * (lane & 3) + h;
+      if (lane < 4 && col < p.m)
+        atomicAdd(reinterpret_cast<unsigned*>(p.out) + (size_t)o * p.m + col,
+                  v);
+      run[j][h] = 0;
+    }
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    gemm_s8_mma_kernel(const MmaParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* ws = smem + kBarBytes;
+  unsigned char* stage0 = ws + p.w_bytes;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;      // mma fragment coordinates
+  const int wm = warp & 3, wn = warp >> 2;
+  constexpr int BN = 16 * NT;
+  const int col0 = blockIdx.y * BN;
+  const int t_begin = (int)((long long)blockIdx.x * p.tiles / gridDim.x);
+  const int t_end = (int)((long long)(blockIdx.x + 1) * p.tiles / gridDim.x);
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) mbar_init(bars + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < p.stages && t_begin + s < t_end; ++s)
+      issue_tile(p, t_begin + s, stage0 + s * p.stage_bytes, bars + s);
+  // w's column tile, once, a warp a row: rows past M and bytes past L
+  // are zero
+  for (int r = warp; r < BN; r += kMmaThreads / 32)
+    for (int k = 4 * lane; k < p.lp; k += 128) {
+      unsigned char* dst = ws + r * p.wst + k;
+      if (col0 + r < p.m && k < p.l)
+        cp_async4(dst, p.w + (size_t)(col0 + r) * p.l + k);
+      else
+        *reinterpret_cast<uint32_t*>(dst) = 0u;
+    }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  const unsigned char* brow = ws + (wn * NT * 8 + g) * p.wst + 4 * tq;
+  const int col_base = col0 + wn * NT * 8;
+  const bool warp_sums = p.tile > 0 && p.tile % kTileRows == 0;
+  uint32_t run[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) run[j][0] = run[j][1] = 0;
+  int cur = -1;                                // output row `run` adds to
+
+  int s = 0;
+  uint32_t phase = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    unsigned char* xs = stage0 + s * p.stage_bytes;
+    mbar_wait(bars + s, phase);
+    int acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+    const unsigned char* arow = xs + g * p.piece + 2 * wm * p.l + 4 * tq;
+    const unsigned char* arow8 = arow + p.l;
+#pragma unroll 2
+    for (int k0 = 0; k0 < p.lp; k0 += 32) {
+      const uint32_t a0 = lds32(arow + k0), a1 = lds32(arow8 + k0);
+      const uint32_t a2 = lds32(arow + k0 + 16), a3 = lds32(arow8 + k0 + 16);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const unsigned char* b = brow + j * 8 * p.wst + k0;
+        mma_s8(acc[j], a0, a1, a2, a3, lds32(b), lds32(b + 16));
+      }
+    }
+    __syncthreads();                           // every warp is done with xs
+    if (tid == 0 && t + p.stages < t_end) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      issue_tile(p, t + p.stages, xs, bars + s);
+    }
+    if (++s == p.stages) {
+      s = 0;
+      phase ^= 1u;
+    }
+
+    // fragment row g (+ 8 h) is row 8 g + 2 wm + h of the tile
+    const int r0 = t * kTileRows + 2 * wm;
+    if (r0 >= p.n) continue;
+    if (p.tile == 0) {                         // store the (N, M) product
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = col_base + 8 * j + 2 * tq;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 8 * g + h;
+          if (row >= p.n || col >= p.m) continue;
+          int* dst = p.out + (size_t)row * p.m + col;
+          if (col + 1 < p.m && p.m % 2 == 0) {
+            *reinterpret_cast<int2*>(dst) = make_int2(acc[j][2 * h],
+                                                      acc[j][2 * h + 1]);
+          } else {
+            dst[0] = acc[j][2 * h];
+            if (col + 1 < p.m) dst[1] = acc[j][2 * h + 1];
+          }
+        }
+      }
+    } else if (warp_sums) {                    // the tile's rows: one tile
+      const int o = r0 / p.tile;
+      if (o != cur) {
+        if (cur >= 0) flush_sums<NT>(p, run, cur, col_base, lane);
+        cur = o;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        run[j][0] += (uint32_t)acc[j][0] + (uint32_t)acc[j][2];
+        run[j][1] += (uint32_t)acc[j][1] + (uint32_t)acc[j][3];
+      }
+    } else {                                   // tiles of other sizes
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + 8 * g + (e >> 1);
+          const int col = col_base + 8 * j + 2 * tq + (e & 1);
+          if (row < p.n && col < p.m)
+            atomicAdd(reinterpret_cast<unsigned*>(p.out) +
+                          (size_t)(row / p.tile) * p.m + col,
+                      (uint32_t)acc[j][e]);
+        }
+    }
+  }
+  if (cur >= 0) flush_sums<NT>(p, run, cur, col_base, lane);
+}
+
+int round_up(int v, int to) { return (v + to - 1) / to * to; }
+
+template <int NT>
+int launch_mma(MmaParams p, int smem, cudaStream_t stream) {
+  const auto kernel = gemm_s8_mma_kernel<NT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kMmaThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int col_tiles = (p.m + 16 * NT - 1) / (16 * NT);
+  const int blocks = max(1, sms * max(per_sm, 1) / col_tiles);
+  const dim3 grid(min(p.tiles, blocks), col_tiles);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core launch for these operands, or -1 where it cannot take
+// them (the dp4a kernel does).
+int try_mma(const int8_t* x, const int8_t* w, int* out, int n, int l, int m,
+            int tile, cudaStream_t stream) {
+  if (l % 4 != 0 || reinterpret_cast<size_t>(x) % 16 != 0 ||
+      reinterpret_cast<size_t>(w) % 4 != 0)
+    return -1;
+  int dev = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  MmaParams p{};
+  p.x = x;
+  p.w = w;
+  p.out = out;
+  p.n = n;
+  p.l = l;
+  p.m = m;
+  p.tile = tile;
+  p.lp = round_up(l, 32);
+  // both strides 16 mod 128 bytes: the 8 rows of a fragment lie 4 banks
+  // apart, so its 32-bit loads are free of bank conflicts; a piece ends at
+  // least 32 bytes past its last row, which the K loop may read past L
+  p.wst = round_up(l, 128) + 16;
+  p.piece = round_up(8 * l + 32, 128) + 16;
+  p.stage_bytes = round_up(8 * p.piece, 128);
+  p.tiles = (n + kTileRows - 1) / kTileRows;
+  // the widest column tile that leaves room for two stages
+  int nt = min(8, (m + 15) / 16);
+  for (; nt > 0; --nt) {
+    p.w_bytes = round_up(16 * nt * p.wst, 128);
+    if (kBarBytes + p.w_bytes + 2 * p.stage_bytes <= max_smem) break;
+  }
+  if (nt == 0) return -1;
+  p.stages = min(kMaxStages,
+                 (max_smem - kBarBytes - p.w_bytes) / p.stage_bytes);
+  const int smem = kBarBytes + p.w_bytes + p.stages * p.stage_bytes;
+  switch (nt) {
+    case 1: return launch_mma<1>(p, smem, stream);
+    case 2: return launch_mma<2>(p, smem, stream);
+    case 3: return launch_mma<3>(p, smem, stream);
+    case 4: return launch_mma<4>(p, smem, stream);
+    case 5: return launch_mma<5>(p, smem, stream);
+    case 6: return launch_mma<6>(p, smem, stream);
+    case 7: return launch_mma<7>(p, smem, stream);
+    default: return launch_mma<8>(p, smem, stream);
+  }
+}
+
+// --- K8 by dp4a: unaligned rows, long rows -----------------------------------
 
 constexpr int kBM = 64;                        // rows of x a block
 constexpr int kBKW = 32;                       // words of L a step (128 B)
@@ -141,7 +486,7 @@ __device__ __forceinline__ int load_word(const int8_t* a, int rows, int l,
 }
 
 template <int TN>
-__global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(GemmParams p) {
+__global__ void __launch_bounds__(kGemmThreads) gemm_s8_dp4a_kernel(GemmParams p) {
   constexpr int BN = 16 * TN;
   constexpr int kStageWords = (kBM + BN) * kLds;
   constexpr int kSumWords = kBM * BN;
@@ -235,9 +580,9 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_s8_kernel(GemmParams p) {
 }
 
 template <int TN>
-int launch_gemm(const GemmParams& p, cudaStream_t stream) {
+int launch_dp4a(const GemmParams& p, cudaStream_t stream) {
   const dim3 grid((p.n + kBM - 1) / kBM, (p.m + 16 * TN - 1) / (16 * TN));
-  gemm_s8_kernel<TN><<<grid, kGemmThreads, 0, stream>>>(p);
+  gemm_s8_dp4a_kernel<TN><<<grid, kGemmThreads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -268,24 +613,28 @@ int int8_tile_sum(const int8_t* x, int* out, int n, int l, int tile,
 
 // K8: out = x (n, l) w (m, l)^T in int32, or with tile > 0 its column sums
 // over each tile of rows, out (n / tile, m) zeroed by the caller and n a
-// multiple of tile.  Launch on `stream`; returns cudaGetLastError().
+// multiple of tile.  One launch on `stream`: the tensor-core kernel, or the
+// dp4a kernel where the bulk copies cannot take the operands.  Returns
+// cudaGetLastError().
 int int8_gemm_s32(const int8_t* x, const int8_t* w, int* out, int n, int l,
                   int m, int tile, void* stream) {
   if (n < 1 || l < 1 || m < 1 || tile < 0 || (tile > 0 && n % tile != 0))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = try_mma(x, w, out, n, l, m, tile, s);
+  if (err >= 0) return err;
   GemmParams p{x, w, out, n, l, m, tile,
                l % 4 == 0 && aligned4(x), l % 4 == 0 && aligned4(w)};
   const int tn = (m + 15) / 16 < 8 ? (m + 15) / 16 : 8;
-  cudaStream_t s = (cudaStream_t)stream;
   switch (tn) {
-    case 1: return launch_gemm<1>(p, s);
-    case 2: return launch_gemm<2>(p, s);
-    case 3: return launch_gemm<3>(p, s);
-    case 4: return launch_gemm<4>(p, s);
-    case 5: return launch_gemm<5>(p, s);
-    case 6: return launch_gemm<6>(p, s);
-    case 7: return launch_gemm<7>(p, s);
-    default: return launch_gemm<8>(p, s);
+    case 1: return launch_dp4a<1>(p, s);
+    case 2: return launch_dp4a<2>(p, s);
+    case 3: return launch_dp4a<3>(p, s);
+    case 4: return launch_dp4a<4>(p, s);
+    case 5: return launch_dp4a<5>(p, s);
+    case 6: return launch_dp4a<6>(p, s);
+    case 7: return launch_dp4a<7>(p, s);
+    default: return launch_dp4a<8>(p, s);
   }
 }
 

@@ -45,7 +45,7 @@ ENTRY_POINTS = {
     "t2q_scores_multiclass_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "int8_tile_sum": [_P] * 2 + [_I] * 3 + [_P],
     "int8_gemm_s32": [_P] * 3 + [_I] * 4 + [_P],
-    "bn_act_fwd_f32": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
+    "bn_act_fwd_f32": [_P] * 6 + [_I] * 3 + [_F, _I, _I, _P],
     "bn_act_bwd_f32": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
     "reparam_kl_f32": [_P] * 5 + [_I] * 2 + [_P],
     "reparam_kl_sample_f32": [_P] * 5 + [_I] * 2 + [_U64] * 2 + [_P],

@@ -11,6 +11,10 @@ batch statistics, the fast variance ``max(E[x^2] - E[x]^2, 0)``, and
 
 Layout: torch's conv layout (B, C, L); statistics are taken over every
 axis but 1, with no relayout (JAX's module is channels-last, ``(..., C)``).
+K2 is one launch of thread block clusters: each channel is split over the
+``k2_cluster_size`` blocks of one cluster, which add their partial sums
+through distributed shared memory and normalise from registers (one read
+of x).  K3 runs one block a channel.
 The kernels take float32, contiguous, 3-d tensors; on a CPU tensor the
 wrappers compute the plain twins ``bn_act_fwd_plain``/``bn_act_bwd_plain``
 (same formulas), on a CUDA tensor they launch or raise.  There is no size
@@ -28,6 +32,10 @@ from ocm_tpu_torch.ops import _build
 from ocm_tpu_torch.ops.kernels import check_cuda_tensors, stream_of
 
 ACTS = ("elu", "gelu", "none")
+# K2's launch (csrc/bn_act.cu): threads a block, elements a thread keeps in
+# registers, the largest portable cluster, and the blocks it aims for (two
+# a SM of an H100's 132)
+K2_THREADS, K2_ITEMS, K2_MAX_CLUSTER, K2_BLOCKS = 256, 16, 8, 256
 
 
 def _act_code(act: str) -> int:
@@ -131,11 +139,29 @@ def _check(what, x, channel_vectors, like_x=None):
         raise ValueError(f"{what}: empty batch {tuple(x.shape)}")
 
 
+def k2_cluster_size(nb: int, nc: int, nl: int) -> int:
+    """Blocks K2 splits each channel of a (nb, nc, nl) batch over: the
+    smallest power of two (at most 8, the portable cluster size, so that a
+    cluster's blocks are always co-resident) that gives ``K2_BLOCKS``
+    blocks in all and a share of at most ``K2_ITEMS`` elements a thread,
+    halved again while a block would get less than one element a thread.
+    8 at C 32, 4 at C 64, 2 at C 128 for the train step's B*L."""
+    n = nb * nl
+    size = 1
+    while size < K2_MAX_CLUSTER and (
+            nc * size < K2_BLOCKS or -(-n // size) > K2_ITEMS * K2_THREADS):
+        size *= 2
+    while size > 1 and n < size * K2_THREADS:
+        size //= 2
+    return size
+
+
 def bn_act_fwd(x, gamma, beta, eps: float = 1e-5, act: str = "elu"):
     """K2: training-mode BatchNorm + activation of x (B, C, L).
 
     Returns (out, mean, var), mean/var the (C,) batch statistics.  CPU
-    tensors: the plain twin; CUDA tensors: the kernel on the current stream.
+    tensors: the plain twin; CUDA tensors: the kernel on the current
+    stream, one launch of C clusters of ``k2_cluster_size`` blocks.
     """
     code = _act_code(act)
     if x.device.type == "cpu":
@@ -149,7 +175,7 @@ def bn_act_fwd(x, gamma, beta, eps: float = 1e-5, act: str = "elu"):
         err = _build.library().bn_act_fwd_f32(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
             mean.data_ptr(), var.data_ptr(), nb, nc, nl, eps, code,
-            stream_of(x))
+            k2_cluster_size(nb, nc, nl), stream_of(x))
     _build.check(err, "bn_act_fwd")
     bn_act_fwd.launches += 1
     return out, mean, var

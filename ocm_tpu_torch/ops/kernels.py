@@ -10,8 +10,9 @@
   int8 probe kernels ``make_read`` and ``make_gemm``
   (``scripts/probe_pallas_int8.py:70,84``): per-tile int32 sums of an int8
   array, and the exact s8 x s8 -> s32 product, written out or reduced to
-  per-tile column sums in the kernel.  K8 is also the product of the int8
-  scoring op (``ops.linalg.t2_q_scores_multiclass_int8``)
+  per-tile column sums in the kernel, on the tensor cores.  K8 is also the
+  product of the int8 scoring op
+  (``ops.linalg.t2_q_scores_multiclass_int8``)
   (``ocm_tpu_torch/csrc/int8.cu``).
 - ``reparam_kl`` is the port of ``reparam_loss_pallas`` with explicit
   noise (``ocm_tpu/ops/kernels.py:110``): ``z = mu + eps * exp(lv / 2)``
@@ -187,8 +188,12 @@ def int8_gemm_s32(xq, w, tile=None):
     (N, L) and ``w`` (M, L), (N, M) int32; with ``tile`` its column sums
     over each ``tile`` rows, (N // tile, M), reduced in the kernel.
 
-    CPU tensors: the plain twin.  CUDA tensors (int8, contiguous): the
-    hand-written kernel on the current stream (``launches`` counts it).
+    CPU tensors: the plain twin.  CUDA tensors (int8, contiguous): one
+    launch on the current stream (``launches`` counts it) of the
+    tensor-core kernel (``mma.sync`` s8, w resident in shared memory, x
+    streamed by bulk copies), or, for rows not 4-byte aligned, an x not
+    16-byte aligned or rows too long for shared memory, of the ``__dp4a``
+    kernel.
     """
     n, length = xq.shape
     m = w.shape[0]

@@ -4,10 +4,13 @@ its kernel wrappers count only real kernel launches.  The kernel-vs-twin
 tests need a CUDA card and skip without one."""
 
 import ast
+import itertools
 import os
 import pathlib
 import subprocess
 import sys
+
+import math
 
 import numpy as np
 import pytest
@@ -221,10 +224,37 @@ def test_kernel_rejects_float64(cuda):
 
 
 # (B, C, L, act): the six BatchNorm shapes of the entry model's train step
-# at B 64 cut to B 8, ragged shapes, and the other activations
+# at B 64 cut to B 8 (K2 clusters of 8, 4, 2, 4, 8 blocks), ragged shapes,
+# the other activations, one channel, a cluster of one block (C 300), a
+# channel too large for registers (re-read to normalise) and L = 1
 BN_CASES = [(8, 32, 501, "elu"), (8, 64, 251, "elu"), (8, 128, 126, "elu"),
             (8, 64, 252, "elu"), (8, 32, 504, "elu"), (3, 5, 7, "elu"),
-            (8, 32, 501, "gelu"), (2, 3, 1000, "none"), (1, 2, 3, "elu")]
+            (8, 32, 501, "gelu"), (2, 3, 1000, "none"), (1, 2, 3, "elu"),
+            (16, 1, 300, "elu"), (4, 300, 64, "elu"), (64, 2, 40000, "elu"),
+            (64, 8, 1, "elu"), (512, 4, 1, "gelu")]
+# the (B, C, L) of every BatchNorm of the entry model's train step
+TRAIN_BN_SHAPES = [(64, 32, 501), (64, 64, 251), (64, 128, 126),
+                   (64, 64, 252), (64, 32, 504), (64, 32, 504)]
+
+
+def test_k2_cluster_size_is_valid():
+    """K2's cluster: 1-8 blocks (the portable size: a cluster whose blocks
+    each fit an SM is always co-resident), a power of two, ~256 blocks at
+    the train step's shapes with every share in registers, one block
+    where a channel has fewer elements than a block has threads."""
+    got = [bn.k2_cluster_size(*shape) for shape in TRAIN_BN_SHAPES]
+    assert got == [8, 4, 2, 4, 8, 8]
+    edges = TRAIN_BN_SHAPES + [c[:3] for c in BN_CASES] + [
+        (1, 1, 1), (1024, 1, 4096), (64, 4096, 8), (2, 7, 5000)]
+    for nb, nc, nl in edges:
+        size = bn.k2_cluster_size(nb, nc, nl)
+        assert 1 <= size <= 8 and size & (size - 1) == 0, (nb, nc, nl)
+        n = nb * nl
+        assert size == 1 or n >= size * bn.K2_THREADS, (nb, nc, nl)
+    for nb, nc, nl in TRAIN_BN_SHAPES:
+        size = bn.k2_cluster_size(nb, nc, nl)
+        assert nc * size >= bn.K2_BLOCKS
+        assert -(-nb * nl // size) <= bn.K2_ITEMS * bn.K2_THREADS
 
 
 @pytest.mark.cuda
@@ -252,6 +282,23 @@ def test_bn_kernels_match_plain_twins(cuda, case):
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=1e-5 * want.abs().max().item(),
                                    msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl", [252, 126, 7], ids=str)
+def test_bn_forward_unaligned_x_matches_plain_twin(cuda, nl):
+    """x off 16- and 8-byte alignment: K2 falls back to narrower loads."""
+    gen = torch.Generator().manual_seed(7)
+    nb, nc = 8, 32
+    flat = torch.randn(nb * nc * nl + 1, generator=gen).to(cuda)
+    x = flat[1:].view(nb, nc, nl)
+    g = (torch.rand(nc, generator=gen) + 0.5).to(cuda)
+    b = (torch.randn(nc, generator=gen) * 0.5).to(cuda)
+    got = bn.bn_act_fwd(x, g, b)
+    torch.cuda.synchronize()
+    for a, want in zip(got, bn.bn_act_fwd_plain(x, g, b, 1e-5, "elu")):
+        torch.testing.assert_close(a, want, rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -319,9 +366,12 @@ INT8_CASES = [(1024, 128, 256), (4096, 512, 512), (1000, 203, 8),
               (640, 500, 64), (96, 36, 96)]
 
 
-def _int8(shape, gen, cuda):
-    return torch.randint(-127, 128, shape, dtype=torch.int8,
-                         generator=gen).to(cuda)
+def _int8(shape, gen, cuda, offset=0):
+    """A contiguous int8 (N, L) tensor whose base lies ``offset`` bytes past
+    an allocation's (aligned) start."""
+    flat = torch.randint(-127, 128, (math.prod(shape) + offset,),
+                         dtype=torch.int8, generator=gen).to(cuda)
+    return flat[offset:].view(shape)
 
 
 @pytest.mark.cuda
@@ -366,6 +416,69 @@ def test_int8_gemm_store_matches_plain_twin(cuda, case):
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == (n, m)
     assert torch.equal(got, kernels.int8_gemm_s32_plain(xq, w))
+
+
+# K8's edges: rows N around its 64-row tiles and a large ragged N, row
+# lengths L of the scoring op (500: one bulk copy a tile), the probe (512: a
+# copy a row), not 4-byte multiples (203: the dp4a kernel), short rows;
+# columns M of one, the scoring op, the probe, and more than one 128-column
+# tile; each pair (N, L) against every M
+GEMM_NS, GEMM_LS, GEMM_MS = (1, 63, 64, 65, 65553), (500, 512, 203, 36, 4), \
+    (1, 66, 128, 200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,length", list(itertools.product(GEMM_NS, GEMM_LS)),
+                         ids=str)
+def test_int8_gemm_store_edges_match_plain_twin(cuda, n, length):
+    gen = torch.Generator().manual_seed(8)
+    xq = _int8((n, length), gen, cuda)
+    for m in GEMM_MS:
+        w = _int8((m, length), gen, cuda)
+        before = kernels.int8_gemm_s32.launches
+        got = kernels.int8_gemm_s32(xq, w)
+        torch.cuda.synchronize()
+        assert kernels.int8_gemm_s32.launches == before + 1
+        assert got.shape == (n, m)
+        assert torch.equal(got, kernels.int8_gemm_s32_plain(xq, w)), m
+
+
+# (N, L, M, x offset, w offset): bases off alignment (x by 1 byte, the dp4a
+# kernel; w by 1 byte; x 4- but not 16-byte aligned), and rows too long for
+# w and two stages in shared memory
+GEMM_ODD_CASES = [(1000, 500, 66, 1, 0), (65, 512, 128, 1, 0),
+                  (300, 500, 66, 0, 1), (257, 512, 66, 4, 0),
+                  (257, 4096, 66, 0, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GEMM_ODD_CASES, ids=str)
+def test_int8_gemm_odd_operands_match_plain_twin(cuda, case):
+    n, length, m, x_off, w_off = case
+    gen = torch.Generator().manual_seed(9)
+    xq, w = _int8((n, length), gen, cuda, x_off), _int8((m, length), gen,
+                                                         cuda, w_off)
+    assert (xq.data_ptr() % 16 != 0) == bool(x_off)
+    got = kernels.int8_gemm_s32(xq, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.int8_gemm_s32_plain(xq, w))
+    tiles = kernels.int8_gemm_s32(xq[:n - n % 8], w, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(tiles, kernels.int8_gemm_s32_plain(xq[:n - n % 8], w, 8))
+
+
+# (L, M, tile) of the tile sums on 1,024 rows: tiles of one row and of 8
+# (one atomic an element), 512 (a warp's rows summed in registers)
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(itertools.product(
+    (500, 512, 203), (66, 128, 200), (1, 8, 512))), ids=str)
+def test_int8_gemm_tile_edges_match_plain_twin(cuda, case):
+    length, m, tile = case
+    gen = torch.Generator().manual_seed(10)
+    xq, w = _int8((1024, length), gen, cuda), _int8((m, length), gen, cuda)
+    got = kernels.int8_gemm_s32(xq, w, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.int8_gemm_s32_plain(xq, w, tile))
 
 
 @pytest.mark.cuda
