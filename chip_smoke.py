@@ -1,7 +1,7 @@
 """Chip smoke run of the PyTorch/CUDA port (``ocm_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py                   # every phase below
-    python3 chip_smoke.py --kernel-times    # K2, K7, K8 timings only
+    python3 chip_smoke.py --kernel-times    # K1, K2, K3, K7, K8 timings only
 
 ``--kernel-times`` times the kernels of the package beside the script;
 a copy of the script placed in an unpacked older tree times that tree's,
@@ -40,7 +40,8 @@ Phases, each of which exits non-zero on failure:
    every kernel's registers, shared memory and spills, and its SASS's
    tensor-core (IMMA/IGMMA/HMMA/HGMMA) and dp4a (IDP) instructions: K8's
    tensor-core kernel must have the first and none of the second;
-3. K1 vs its plain twin at the bench shapes and three other shapes;
+3. K1 vs its plain twin at the bench shapes and four other shapes (its
+   resident and staged plans);
 4. SIMCA main path: launches counted, limits finite and positive, the
    card's f32 fit against the port's own f64 CPU fit of the same data;
 5. SIMCA timings with CUDA events (median after warm-up);
@@ -52,8 +53,8 @@ Phases, each of which exits non-zero on failure:
    finite and falling losses, one train step on the card in f32 against
    the port's CPU f64, and the entry model's forward and cosine loss;
 8. VAE timings: one train step, the 20-epoch run, and each kernel beside
-   its bound, its twin and the nearest PyTorch call (K2 over inputs that
-   rotate past the L2, and L2-warm);
+   its bound, its twin and the nearest PyTorch call (K2 and K3 over inputs
+   that rotate past the L2, and L2-warm);
 9. K5 vs its plain twin at (512, 16), (65,536, 16) and (300, 5): the
    kernel's own noise, z and KL, determinism and keying, and the noise's
    moments, Kolmogorov-Smirnov distance and neighbour correlations;
@@ -250,6 +251,16 @@ def library_scores(x, means, comps, invcovs):
     return torch.einsum("cnj,cjk,cnk->cn", t, invcovs, t), q
 
 
+def k1_work(n, length, c, k, x_bytes):
+    """(bytes, f32 operations) K1 needs for x (n, length) of ``x_bytes``
+    an element against c models of k loadings: x, means, loadings and
+    invcov read once, t2 and q written once; the centering, scores,
+    ||xc||^2, T^2 and Q of every spectrum and class."""
+    nbytes = x_bytes * n * length + 4 * (c * length + c * k * length
+                                         + c * k * k + 2 * c * n)
+    return nbytes, n * c * (length * (2 * k + 3) + 2 * k * k + 4 * k + 1)
+
+
 def compare_kernel(label, x, models, decision_type="alt"):
     """Kernel vs plain twin on the card; returns the max absolute error."""
     args = [a.contiguous() for a in (x, models.mean, models.components,
@@ -263,9 +274,12 @@ def compare_kernel(label, x, models, decision_type="alt"):
     t2_rel = ((t2 - t2_p).abs() / t2_p.abs()).max().item()
     q_rel = ((q - q_p).abs() / xc2).max().item()
     err = max((t2 - t2_p).abs().max().item(), (q - q_p).abs().max().item())
+    (n, length), (c, k, _) = args[0].shape, args[2].shape
+    plan = kernels.k1_plan(n, length, c, k, args[0].element_size(),
+                           *_build.device_limits(args[0].device.index))
     line = {"phase": "kernel_vs_plain", "shape": label,
-            "t2_max_rel": t2_rel, "q_max_rel_of_norm": q_rel,
-            "max_abs_err": err}
+            "plan": plan._asdict(), "t2_max_rel": t2_rel,
+            "q_max_rel_of_norm": q_rel, "max_abs_err": err}
     check(t2_rel <= 1e-4, f"{label}: T2 rel err {t2_rel} > 1e-4")
     check(q_rel <= 1e-4, f"{label}: Q err {q_rel} > 1e-4 of ||x - m||^2")
     if models.d_limit is not None:
@@ -590,51 +604,69 @@ def library_bn(x, g, b, act):
 
 def time_bn(shapes, gen, dev, bw, f32_rate):
     """Per-shape K2/K3 records summed over one train step's six shapes.
-    K2, its twin and its library call are timed twice: over rotating inputs
-    that together exceed twice the L2 (``*_ms``: each call reads x from
-    device memory, as the bound is priced) and on one input, L2-warm as the
-    train step sees its activations (``*_warm_ms``)."""
-    tot = {f"k2_{key}": 0.0 for key in (
-        "ms", "warm_ms", "plain_ms", "plain_warm_ms", "library_ms",
-        "library_warm_ms", "bound_ms", "call_ms")}
-    tot.update({f"k3_{key}": 0.0 for key in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "call_ms")})
+    Each kernel, its twin and its library call are timed twice: over
+    rotating inputs that together exceed twice the L2 (``*_ms``: each call
+    reads its inputs from device memory, as the bound is priced) and on
+    one input, L2-warm as the train step sees its activations
+    (``*_warm_ms``)."""
+    keys = ("ms", "warm_ms", "plain_ms", "plain_warm_ms", "library_ms",
+            "library_warm_ms", "bound_ms", "call_ms")
+    tot = {f"{kern}_{key}": 0.0 for kern in ("k2", "k3") for key in keys}
     bound_by = {"k2": set(), "k3": set()}
     for shape in shapes:
         x, g, b, dout = bn_inputs(shape, gen, dev)
         out, mean, var = bn.bn_act_fwd(x, g, b)
-        xr, gr, br = (t.clone().requires_grad_() for t in (x, g, b))
-        y_lib = library_bn(xr, gr, br, "elu")
         n = x.numel()
         nc = shape[1]
         count = max(2, math.ceil(2 * L2_BYTES / (8 * n)))   # x and out
         xs = [x] + [x + 1e-3 * i for i in range(1, count)]
-        reps = 2 * count
+        # K3 reads x and dout and writes dx; its library call runs
+        # autograd back through F.batch_norm + ELU, one graph an input
+        grads = [(a, dout + 1e-3 * i) for i, a in enumerate(xs)]
+        graphs = {}
+        for a, d in grads:
+            xr, gr, br = (t.clone().requires_grad_() for t in (a, g, b))
+            graphs[id(a)] = (library_bn(xr, gr, br, "elu"), (xr, gr, br))
+
+        def k3_library(a, d):
+            y, leaves = graphs[id(a)]
+            return torch.autograd.grad(y, leaves, d, retain_graph=True)
+
+        def k3_plain(a, d):
+            return bn.bn_act_bwd_plain(a, g, b, mean, var, d, BN_EPS, "elu")
+
         k2 = (8 * n + 16 * nc, K2_OPS * n)
         k3 = (12 * n + 24 * nc, K3_OPS * n)
         row = {"shape": shape, "rotated_inputs": count,
                "k2_ms": int8_probe.device_ms(
-                   lambda a: bn.bn_act_fwd(a, g, b), xs, reps),
+                   lambda a: bn.bn_act_fwd(a, g, b), xs, 2 * count),
                "k2_warm_ms": device_ms(lambda: bn.bn_act_fwd(x, g, b)),
                "k2_plain_ms": int8_probe.device_ms(
                    lambda a: bn.bn_act_fwd_plain(a, g, b, BN_EPS, "elu"), xs,
-                   reps),
+                   2 * count),
                "k2_plain_warm_ms": device_ms(
                    lambda: bn.bn_act_fwd_plain(x, g, b, BN_EPS, "elu")),
                "k2_library_ms": int8_probe.device_ms(
-                   lambda a: library_bn(a, g, b, "elu"), xs, reps),
+                   lambda a: library_bn(a, g, b, "elu"), xs, 2 * count),
                "k2_library_warm_ms": device_ms(
                    lambda: library_bn(x, g, b, "elu")),
                "k2_call_ms": median_ms(lambda: bn.bn_act_fwd(x, g, b), 3, 21),
-               "k3_ms": device_ms(
+               "k3_cluster": bn.k2_cluster_size(*shape),
+               "k3_ms": int8_probe.device_ms(
+                   lambda ad: bn.bn_act_bwd(ad[0], g, b, mean, var, ad[1]),
+                   grads, 2 * count),
+               "k3_warm_ms": device_ms(
                    lambda: bn.bn_act_bwd(x, g, b, mean, var, dout)),
-               "k3_plain_ms": device_ms(lambda: bn.bn_act_bwd_plain(
-                   x, g, b, mean, var, dout, BN_EPS, "elu")),
-               "k3_library_ms": device_ms(lambda: torch.autograd.grad(
-                   y_lib, (xr, gr, br), dout, retain_graph=True)),
+               "k3_plain_ms": int8_probe.device_ms(
+                   lambda ad: k3_plain(*ad), grads, 2 * count),
+               "k3_plain_warm_ms": device_ms(lambda: k3_plain(x, dout)),
+               "k3_library_ms": int8_probe.device_ms(
+                   lambda ad: k3_library(*ad), grads, 2 * count),
+               "k3_library_warm_ms": device_ms(
+                   lambda: k3_library(x, dout)),
                "k3_call_ms": median_ms(
                    lambda: bn.bn_act_bwd(x, g, b, mean, var, dout), 3, 21)}
-        del xs
+        del xs, grads, graphs
         for key, (nbytes, ops) in (("k2", k2), ("k3", k3)):
             bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * ops / f32_rate
             row[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
@@ -1472,10 +1504,7 @@ def serving_timings(dev, card, rates, models, scorers, x, counts, xq, wq,
     out["k1 bf16"] = kernel_timing(
         lambda a: kernels.t2q_scores_multiclass(a, *rest),
         lambda a: kernels.t2q_scores_multiclass_plain(a, *rest), xs,
-        (2 * SRV_CHUNK * length + 4 * (c * length + c * k * length
-                                       + c * k * k + 2 * c * SRV_CHUNK),
-         SRV_CHUNK * c * (length * (2 * k + 3) + 2 * k * k + 4 * k + 1),
-         bw, f32_rate),
+        (*k1_work(SRV_CHUNK, length, c, k, 2), bw, f32_rate),
         library=lambda a: library_scores(a.float(), *rest))
     # f32 K1 on the same chunks widened, for the bf16 instantiation's
     # comparison at one shape
@@ -1555,14 +1584,39 @@ def serving_phases(dev, card, rates, decisions):
                "ocm_tpu/ops/kernels.py:45")]
 
 
+def k1_kernel_timings(dev, gen, bw, f32_rate):
+    """K1 at the main path's shape (98,304 x 500, C 3, k 10) and at one
+    serving chunk (65,536), f32 and bf16 x, each over 3 rotating inputs
+    beside its bound and the library formulation: {name: timing record}."""
+    models = _Scorer(N_CLASSES, K, LENGTH, gen, dev)
+    rest = (models.mean, models.components.contiguous(),
+            models.invcovT.contiguous())
+    out = {}
+    for n, dtype in ((N_SCORE, torch.float32), (SRV_CHUNK, torch.float32),
+                     (SRV_CHUNK, torch.bfloat16)):
+        xs = [(torch.randn(n, LENGTH, generator=gen) + 5.0).to(dev, dtype)
+              for _ in range(3)]
+        size = torch.finfo(dtype).bits // 8
+        out[f"k1 {'bf16' if size == 2 else 'f32'} n={n}"] = kernel_timing(
+            lambda a: kernels.t2q_scores_multiclass(a, *rest),
+            lambda a: kernels.t2q_scores_multiclass_plain(a, *rest), xs,
+            (*k1_work(n, LENGTH, N_CLASSES, K, size), bw, f32_rate),
+            library=lambda a: library_scores(a.float(), *rest), plain_reps=3)
+        del xs
+    return out
+
+
 def kernel_times(dev, card, name):
-    """``--kernel-times``: only the timings of K2 (the train step's six
-    shapes) and K7/K8 (the probe's tiles, the scoring shape), through the
-    package beside this file.  A copy of this script in another tree of the
-    repo times that tree's kernels the same way, so two versions can be
-    timed in turns within one chip call."""
+    """``--kernel-times``: only the timings of K1 and bf16 K1
+    (``k1_kernel_timings``), K2/K3 (the train step's six shapes, rotating
+    past the L2 and L2-warm) and K7/K8 (the probe's tiles, the scoring
+    shape), through the package beside this file.  A copy of this script
+    in another tree of the repo times that tree's kernels the same way, so
+    two versions can be timed in turns within one chip call."""
     bw, f32_rate, int8_rate = peaks(name)
     _build.library()
+    k1_t = k1_kernel_timings(dev, torch.Generator().manual_seed(1), bw,
+                             f32_rate)
     bn_t, _ = time_bn(TRAIN_BN_SHAPES, torch.Generator().manual_seed(0), dev,
                       bw, f32_rate)
     n, lp, _ = int8_probe.HEADLINE
@@ -1572,13 +1626,14 @@ def kernel_times(dev, card, name):
     print(json.dumps({"phase": "kernel_times", "card": card,
                       "package": os.path.dirname(os.path.dirname(
                           os.path.abspath(bn.__file__))),
-                      "bn": bn_t, "int8": int8_t}), flush=True)
+                      "k1": k1_t, "bn": bn_t, "int8": int8_t}), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
-                    help="time K2, K7 and K8 only (see kernel_times)")
+                    help="time K1, K2, K3, K7 and K8 only (see "
+                         "kernel_times)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1623,9 +1678,10 @@ def main(argv=None) -> int:
     x_dev = torch.as_tensor(xs32, device=dev)
     cals_dev = torch.as_tensor(cals32, device=dev)
 
-    # 3. kernel vs plain twin: bench shapes, a ragged single class, a shape
-    #    with three class groups and 32 chunks of L, and one with k > 32
-    #    (two passes of loading rows) and L not a multiple of 4
+    # 3. kernel vs plain twin: bench shapes (models resident), a ragged
+    #    single class, models staged a pass at a time (C 5, k 12, L 2000)
+    #    and over windows of L with several warps a CTA (L 3000), and k > 32
+    #    (two tasks a class) with L not a multiple of 4
     models = fit_simca(cals_dev, K, solver="rsvd")
     bench_err = compare_kernel("bench N=98304 L=500 C=3 k=10", x_dev, models)
     rc, _ = make_data(seed=1, n_cal=200, length=96, n_classes=1, n_score=1)
@@ -1635,8 +1691,9 @@ def main(argv=None) -> int:
                    torch.as_tensor(rc[0, :137], dtype=torch.float32, device=dev),
                    small)
     gen = torch.Generator().manual_seed(0)
-    for n, length, c, k in ((1000, 2000, 5, 12), (300, 203, 2, 40)):
-        compare_kernel(f"groups N={n} L={length} C={c} k={k}",
+    for n, length, c, k in ((1000, 2000, 5, 12), (20000, 3000, 3, 12),
+                            (300, 203, 2, 40)):
+        compare_kernel(f"N={n} L={length} C={c} k={k}",
                        (torch.randn(n, length, generator=gen) + 5.0).to(dev),
                        _Scorer(c, k, length, gen, dev))
 
@@ -1691,10 +1748,7 @@ def main(argv=None) -> int:
                          10)
     library_ms = device_ms(lambda: library_scores(*args), 10)
     bw, f32_rate, int8_rate = peaks(name)
-    n, length, c, k = N_SCORE, LENGTH, N_CLASSES, K
-    nbytes = 4 * (n * length + c * length + c * k * length + c * k * k
-                  + 2 * c * n)
-    flops = n * c * (length * (2 * k + 3) + 2 * k * k + 4 * k + 1)
+    nbytes, flops = k1_work(N_SCORE, LENGTH, N_CLASSES, K, 4)
     bytes_ms, flops_ms = 1e3 * nbytes / bw, 1e3 * flops / f32_rate
     bound_ms = max(bytes_ms, flops_ms)
     print(json.dumps({"phase": "timings", "card": card, "fit_ms": fit_ms,

@@ -27,29 +27,36 @@
 // MB a layer, ~2.5-3.7 us at 3.35 TB/s, against ~10-30 f32 operations an
 // element.
 //
-// Forward (bn_act_fwd_cluster_kernel): one launch of thread block clusters,
-// each channel split over the `cluster` blocks of one cluster (1-8, chosen
-// by the wrapper so that C x cluster is ~256 blocks, two a SM: 8 at C 32, 4
-// at C 64, 2 at C 128; one channel a block would leave a third to three
-// quarters of the 132 SMs idle at C 32-64).  A block of 256 threads takes
-// a contiguous share of the channel's B*L elements (a flat index, l
-// innermost) and, where the share fits (<= 16 elements a thread; every
-// train-step shape does), holds it in registers: it reads x once, forms
-// the partial (sum x, sum x^2), and cluster_sum2 (common.cuh) adds the
-// cluster's partials through distributed shared memory, in rank order, so
-// every block has the same mean and variance; then it normalises from
-// registers and writes out.  So x is read once and out written once, in
-// one launch.  A share too large for registers is read again, from L2 or
-// device memory, to normalise.  Loads are 16 bytes where L % 4 == 0 and x
-// is 16-byte aligned, 8 bytes where L % 2 == 0, else 4.
+// Both directions are one launch of thread block clusters, each channel
+// split over the `cluster` blocks of one cluster (1-8, chosen by the
+// wrapper, ops.bn.k2_cluster_size, so that C x cluster is ~256 blocks, two
+// a SM: 8 at C 32, 4 at C 64, 2 at C 128; one channel a block would leave
+// a third to three quarters of the 132 SMs idle at C 32-64).  A block of
+// 256 threads takes a contiguous share of the channel's B*L elements (a
+// flat index, l innermost) and, where the share fits (<= 16 elements a
+// thread; every train-step shape does), holds it in registers:
 //
-// Backward (bn_act_bwd_kernel): the first design, one block of 1024
-// threads per channel walks the channel's B*L elements, four independent
-// loads in flight per thread; f32 partial sums are reduced by warp
-// shuffles and shared memory; the same block then re-reads its channel
-// (from L2: a channel is at most 128 KB here) to form dx.  Only C = 32 to
-// 128 blocks run on 132 SMs; the forward's cluster split (cluster_sum2
-// over its two sums) is the change it would take.
+// - forward (bn_act_fwd_cluster_kernel): it reads x once and forms the
+//   partial (sum x, sum x^2);
+// - backward (bn_act_bwd_cluster_kernel): it reads x and dout once, keeps
+//   xhat and dy = dout act'(y) and forms the partial (sum dy, sum dy xhat).
+//
+// cluster_sum2 (common.cuh) adds the cluster's partials through
+// distributed shared memory, in rank order, so every block has the same
+// totals bit for bit; then each thread writes out (forward) or dx
+// (backward) from its registers.  So the forward moves 8 bytes an element
+// and the backward 12, each in one launch.  A share too large for
+// registers is read again, from L2 or device memory, for the second half.
+// Loads are 16 bytes where L % 4 == 0 and every tensor of the shape is
+// 16-byte aligned, 8 bytes where L % 2 == 0, else 4.
+//
+// Measured (PERF.md §6, NVIDIA H100 80GB HBM3, 700 W), over the train
+// step's six shapes: K2 0.056 ms with inputs rotating past the L2, 0.048
+// L2-warm; K3 0.062 and 0.050 (its first design, one 1024-thread block a
+// channel reading x and dout twice, 0.146 and 0.131).  That is 3.3-3.8x
+// (K2) and 2.3-2.8x (K3) their bounds: a shape's read, cluster barrier and
+// write run one after the other in one wave, and a launch alone takes ~2
+// us.
 
 #include <cuda_runtime.h>
 
@@ -57,10 +64,8 @@
 
 namespace {
 
-constexpr int kThreads = 1024;             // K3's block
-constexpr int kUnroll = 4;
-constexpr int kFwdThreads = 256;           // K2's block
-constexpr int kFwdItems = 16;              // elements a thread keeps
+constexpr int kThreads = 256;              // a block
+constexpr int kItems = 16;                 // elements a thread keeps
 
 enum Act : int { kElu = 0, kGelu = 1, kNone = 2 };
 
@@ -104,6 +109,47 @@ struct Channel {
   }
 };
 
+// This block's share of its channel, in whole vectors of V elements
+// (L % V == 0, so a vector never straddles two rows): [q0, q1) of the
+// channel's n / V, split evenly over the cluster's blocks.  Where the share
+// fits in registers (at most NV vectors a thread), `off` holds this
+// thread's vectors' offsets, kThreads * V elements apart: the first one's
+// (b, l) by one division, then stepped.
+template <int V, int NV>
+struct Share {
+  int q0, q1;
+  bool resident;
+  size_t off[NV];
+
+  __device__ __forceinline__ Share(const Channel& ch, int n, int rank,
+                                   int cluster) {
+    const int nvec = n / V;
+    const int per = (nvec + cluster - 1) / cluster;
+    q0 = min(nvec, rank * per);
+    q1 = min(nvec, q0 + per);
+    resident = q1 - q0 <= NV * kThreads;
+    if (!resident) return;
+    const int step = kThreads * V, db = step / ch.l, dl = step - db * ch.l;
+    int b = (q0 + (int)threadIdx.x) * V / ch.l;
+    int l = (q0 + (int)threadIdx.x) * V - b * ch.l;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      off[j] = (size_t)b * ch.row + ch.base + l;
+      b += db;
+      l += dl;
+      if (l >= ch.l) {
+        l -= ch.l;
+        ++b;
+      }
+    }
+  }
+
+  // this thread's j-th vector lies in the share
+  __device__ __forceinline__ bool has(int j) const {
+    return q0 + (int)threadIdx.x + j * kThreads < q1;
+  }
+};
+
 // V consecutive floats (V = 1, 2, 4) of one row, as one load or store.
 template <int V>
 __device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
@@ -129,8 +175,16 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
   }
 }
 
+__device__ __forceinline__ int cluster_blocks() {
+  return (int)cooperative_groups::this_cluster().num_blocks();
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  return (int)cooperative_groups::this_cluster().block_rank();
+}
+
 template <int A, int V>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(kThreads)
     bn_act_fwd_cluster_kernel(const float* __restrict__ x,
                               const float* __restrict__ gamma,
                               const float* __restrict__ beta,
@@ -138,44 +192,21 @@ __global__ void __launch_bounds__(kFwdThreads)
                               float* __restrict__ mean_out,
                               float* __restrict__ var_out, int nb, int nc,
                               int nl, float eps) {
-  constexpr int NV = kFwdItems / V;            // vectors a thread keeps
+  constexpr int NV = kItems / V;               // vectors a thread keeps
   __shared__ float2 scratch[32];
-  const int cluster = (int)cooperative_groups::this_cluster().num_blocks();
-  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int cluster = cluster_blocks(), rank = cluster_rank();
   const int c = blockIdx.x / cluster;
   const int n = nb * nl;
   const Channel ch{(size_t)c * nl, (size_t)nc * nl, nl};
-  // this block's share of the channel, in whole vectors (L % V == 0, so a
-  // vector never straddles two rows)
-  const int nvec = n / V;
-  const int per = (nvec + cluster - 1) / cluster;
-  const int q0 = min(nvec, rank * per), q1 = min(nvec, q0 + per);
-  const bool resident = q1 - q0 <= NV * kFwdThreads;
+  const Share<V, NV> sh(ch, n, rank, cluster);
 
   float v[NV][V];
-  size_t off[NV];
   float s = 0.f, s2 = 0.f;
-  if (resident) {
-    // the offsets of this thread's vectors, kFwdThreads * V elements apart:
-    // the first one's (b, l) by one division, then stepped
-    const int step = kFwdThreads * V, db = step / nl, dl = step - db * nl;
-    int b = (q0 + (int)threadIdx.x) * V / nl;
-    int l = (q0 + (int)threadIdx.x) * V - b * nl;
+  if (sh.resident) {
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
-      off[j] = (size_t)b * ch.row + ch.base + l;
-      b += db;
-      l += dl;
-      if (l >= nl) {
-        l -= nl;
-        ++b;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int q = q0 + threadIdx.x + j * kFwdThreads;
-      if (q < q1) {
-        load_vec<V>(x + off[j], v[j]);
+      if (sh.has(j)) {
+        load_vec<V>(x + sh.off[j], v[j]);
       } else {
 #pragma unroll
         for (int e = 0; e < V; ++e) v[j][e] = 0.f;
@@ -189,7 +220,7 @@ __global__ void __launch_bounds__(kFwdThreads)
         s2 += v[j][e] * v[j][e];
       }
   } else {
-    for (int q = q0 + threadIdx.x; q < q1; q += kFwdThreads) {
+    for (int q = sh.q0 + threadIdx.x; q < sh.q1; q += kThreads) {
       float t[V];
       load_vec<V>(x + ch.at(q * V), t);
 #pragma unroll
@@ -206,17 +237,16 @@ __global__ void __launch_bounds__(kFwdThreads)
   const float mul = rsqrtf(var + eps) * gamma[c];
   const float shift = beta[c];
 
-  if (resident) {
+  if (sh.resident) {
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
-      const int q = q0 + threadIdx.x + j * kFwdThreads;
-      if (q >= q1) continue;
+      if (!sh.has(j)) continue;
 #pragma unroll
       for (int e = 0; e < V; ++e) v[j][e] = act<A>((v[j][e] - mean) * mul + shift);
-      store_vec<V>(out + off[j], v[j]);
+      store_vec<V>(out + sh.off[j], v[j]);
     }
   } else {
-    for (int q = q0 + threadIdx.x; q < q1; q += kFwdThreads) {
+    for (int q = sh.q0 + threadIdx.x; q < sh.q1; q += kThreads) {
       const size_t off = ch.at(q * V);
       float t[V];
       load_vec<V>(x + off, t);
@@ -232,82 +262,119 @@ __global__ void __launch_bounds__(kFwdThreads)
   cluster_sum2_wait();
 }
 
+// The backward's per-element terms: x becomes xhat and d becomes
+// dy = dout * act'(xhat * g + bt).
 template <int A>
+__device__ __forceinline__ void bwd_terms(float& x, float& d, float mean,
+                                          float rstd, float g, float bt) {
+  x = (x - mean) * rstd;
+  d *= act_grad<A>(x * g + bt);
+}
+
+template <int A, int V>
 __global__ void __launch_bounds__(kThreads)
-    bn_act_bwd_kernel(const float* __restrict__ x,
-                      const float* __restrict__ gamma,
-                      const float* __restrict__ beta,
-                      const float* __restrict__ mean_in,
-                      const float* __restrict__ var_in,
-                      const float* __restrict__ dout, float* __restrict__ dx,
-                      float* __restrict__ dgamma_out,
-                      float* __restrict__ dbeta_out, int nb, int nc, int nl,
-                      float eps) {
+    bn_act_bwd_cluster_kernel(const float* __restrict__ x,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ beta,
+                              const float* __restrict__ mean_in,
+                              const float* __restrict__ var_in,
+                              const float* __restrict__ dout,
+                              float* __restrict__ dx,
+                              float* __restrict__ dgamma_out,
+                              float* __restrict__ dbeta_out, int nb, int nc,
+                              int nl, float eps) {
+  constexpr int NV = kItems / V;
   __shared__ float2 scratch[32];
-  const int c = blockIdx.x;
+  const int cluster = cluster_blocks(), rank = cluster_rank();
+  const int c = blockIdx.x / cluster;
   const int n = nb * nl;
   const Channel ch{(size_t)c * nl, (size_t)nc * nl, nl};
+  const Share<V, NV> sh(ch, n, rank, cluster);
   const float mean = mean_in[c];
   const float rstd = rsqrtf(var_in[c] + eps);
   const float g = gamma[c];
   const float bt = beta[c];
 
+  // xh and dy start as x and dout; masked vectors are 0 and add 0 (dy 0)
+  float xh[NV][V], dy[NV][V];
   float sdy = 0.f, sdyx = 0.f;
-  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kUnroll) {
-    float v[kUnroll], d[kUnroll];
+  if (sh.resident) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * kThreads;
-      const size_t off = i < n ? ch.at(i) : 0;
-      v[u] = i < n ? x[off] : 0.f;
-      d[u] = i < n ? dout[off] : 0.f;   // 0 for the masked tail: adds 0
+    for (int j = 0; j < NV; ++j) {
+      if (sh.has(j)) {
+        load_vec<V>(x + sh.off[j], xh[j]);
+        load_vec<V>(dout + sh.off[j], dy[j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) xh[j][e] = dy[j][e] = 0.f;
+      }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float xhat = (v[u] - mean) * rstd;
-      const float dy = d[u] * act_grad<A>(xhat * g + bt);
-      sdy += dy;
-      sdyx += dy * xhat;
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        bwd_terms<A>(xh[j][e], dy[j][e], mean, rstd, g, bt);
+        sdy += dy[j][e];
+        sdyx += dy[j][e] * xh[j][e];
+      }
+  } else {
+    for (int q = sh.q0 + threadIdx.x; q < sh.q1; q += kThreads) {
+      const size_t off = ch.at(q * V);
+      float t[V], d[V];
+      load_vec<V>(x + off, t);
+      load_vec<V>(dout + off, d);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        bwd_terms<A>(t[e], d[e], mean, rstd, g, bt);
+        sdy += d[e];
+        sdyx += d[e] * t[e];
+      }
     }
   }
-  const float2 tot = block_sum2(sdy, sdyx, scratch);
+  const float2 tot = cluster_sum2(sdy, sdyx, scratch);
   const float inv_n = 1.f / (float)n;
   const float dbeta_n = tot.x * inv_n;
   const float dgamma_n = tot.y * inv_n;
   const float scale = rstd * g;
 
-  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kUnroll) {
-    size_t off[kUnroll];
-    float v[kUnroll], d[kUnroll];
+  if (sh.resident) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * kThreads;
-      off[u] = i < n ? ch.at(i) : 0;
-      v[u] = i < n ? x[off[u]] : 0.f;
-      d[u] = i < n ? dout[off[u]] : 0.f;
+    for (int j = 0; j < NV; ++j) {
+      if (!sh.has(j)) continue;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        dy[j][e] = scale * (dy[j][e] - dbeta_n - xh[j][e] * dgamma_n);
+      store_vec<V>(dx + sh.off[j], dy[j]);
     }
+  } else {
+    for (int q = sh.q0 + threadIdx.x; q < sh.q1; q += kThreads) {
+      const size_t off = ch.at(q * V);
+      float t[V], d[V];
+      load_vec<V>(x + off, t);
+      load_vec<V>(dout + off, d);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (i0 + u * kThreads < n) {
-        const float xhat = (v[u] - mean) * rstd;
-        const float dy = d[u] * act_grad<A>(xhat * g + bt);
-        dx[off[u]] = scale * (dy - dbeta_n - xhat * dgamma_n);
+      for (int e = 0; e < V; ++e) {
+        bwd_terms<A>(t[e], d[e], mean, rstd, g, bt);
+        d[e] = scale * (d[e] - dbeta_n - t[e] * dgamma_n);
       }
+      store_vec<V>(dx + off, d);
     }
   }
-  if (threadIdx.x == 0) {
+  if (rank == 0 && threadIdx.x == 0) {
     dgamma_out[c] = tot.y;
     dbeta_out[c] = tot.x;
   }
+  cluster_sum2_wait();
 }
 
-template <int A, int V>
-int launch_fwd(const float* x, const float* gamma, const float* beta,
-               float* out, float* mean, float* var, int nb, int nc, int nl,
-               float eps, int cluster, cudaStream_t stream) {
+// One launch of nc clusters of `cluster` blocks of `kernel` on `stream`;
+// returns the launch's error, or cudaGetLastError() after it.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int nc, int cluster,
+                    cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)nc * cluster);
-  cfg.blockDim = dim3(kFwdThreads);
+  cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -317,30 +384,62 @@ int launch_fwd(const float* x, const float* gamma, const float* beta,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, bn_act_fwd_cluster_kernel<A, V>, x, gamma, beta, out, mean, var,
-      nb, nc, nl, eps);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <int A>
-int launch_fwd_vec(const float* x, const float* gamma, const float* beta,
-                   float* out, float* mean, float* var, int nb, int nc,
-                   int nl, float eps, int cluster, cudaStream_t stream) {
-  const size_t align = reinterpret_cast<size_t>(x) |
-                       reinterpret_cast<size_t>(out);
-  if (nl % 4 == 0 && align % 16 == 0)
-    return launch_fwd<A, 4>(x, gamma, beta, out, mean, var, nb, nc, nl, eps,
-                            cluster, stream);
-  if (nl % 2 == 0 && align % 8 == 0)
-    return launch_fwd<A, 2>(x, gamma, beta, out, mean, var, nb, nc, nl, eps,
-                            cluster, stream);
-  return launch_fwd<A, 1>(x, gamma, beta, out, mean, var, nb, nc, nl, eps,
-                          cluster, stream);
+// The widest vector (4, 2 or 1 floats) that every row of L and every one
+// of the tensors' bases allow.
+int vec_width(int nl, size_t align) {
+  if (nl % 4 == 0 && align % 16 == 0) return 4;
+  if (nl % 2 == 0 && align % 8 == 0) return 2;
+  return 1;
 }
 
-bool bad_shape(int nb, int nc, int nl, int act) {
-  return nb < 1 || nc < 1 || nl < 1 || act < kElu || act > kNone;
+template <int A>
+int launch_fwd(const float* x, const float* gamma, const float* beta,
+               float* out, float* mean, float* var, int nb, int nc, int nl,
+               float eps, int cluster, cudaStream_t s) {
+  switch (vec_width(nl, reinterpret_cast<size_t>(x) |
+                            reinterpret_cast<size_t>(out))) {
+    case 4:
+      return launch_clusters(bn_act_fwd_cluster_kernel<A, 4>, nc, cluster, s,
+                             x, gamma, beta, out, mean, var, nb, nc, nl, eps);
+    case 2:
+      return launch_clusters(bn_act_fwd_cluster_kernel<A, 2>, nc, cluster, s,
+                             x, gamma, beta, out, mean, var, nb, nc, nl, eps);
+    default:
+      return launch_clusters(bn_act_fwd_cluster_kernel<A, 1>, nc, cluster, s,
+                             x, gamma, beta, out, mean, var, nb, nc, nl, eps);
+  }
+}
+
+template <int A>
+int launch_bwd(const float* x, const float* gamma, const float* beta,
+               const float* mean, const float* var, const float* dout,
+               float* dx, float* dgamma, float* dbeta, int nb, int nc,
+               int nl, float eps, int cluster, cudaStream_t s) {
+  switch (vec_width(nl, reinterpret_cast<size_t>(x) |
+                            reinterpret_cast<size_t>(dout) |
+                            reinterpret_cast<size_t>(dx))) {
+    case 4:
+      return launch_clusters(bn_act_bwd_cluster_kernel<A, 4>, nc, cluster, s,
+                             x, gamma, beta, mean, var, dout, dx, dgamma,
+                             dbeta, nb, nc, nl, eps);
+    case 2:
+      return launch_clusters(bn_act_bwd_cluster_kernel<A, 2>, nc, cluster, s,
+                             x, gamma, beta, mean, var, dout, dx, dgamma,
+                             dbeta, nb, nc, nl, eps);
+    default:
+      return launch_clusters(bn_act_bwd_cluster_kernel<A, 1>, nc, cluster, s,
+                             x, gamma, beta, mean, var, dout, dx, dgamma,
+                             dbeta, nb, nc, nl, eps);
+  }
+}
+
+bool bad_shape(int nb, int nc, int nl, int act, int cluster) {
+  return nb < 1 || nc < 1 || nl < 1 || act < kElu || act > kNone ||
+         cluster < 1 || cluster > 8;
 }
 
 }  // namespace
@@ -353,46 +452,40 @@ extern "C" {
 int bn_act_fwd_f32(const float* x, const float* gamma, const float* beta,
                    float* out, float* mean, float* var, int nb, int nc,
                    int nl, float eps, int act, int cluster, void* stream) {
-  if (bad_shape(nb, nc, nl, act) || cluster < 1 || cluster > 8)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(nb, nc, nl, act, cluster)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (act) {
     case kElu:
-      return launch_fwd_vec<kElu>(x, gamma, beta, out, mean, var, nb, nc, nl,
-                                  eps, cluster, s);
+      return launch_fwd<kElu>(x, gamma, beta, out, mean, var, nb, nc, nl, eps,
+                              cluster, s);
     case kGelu:
-      return launch_fwd_vec<kGelu>(x, gamma, beta, out, mean, var, nb, nc,
-                                   nl, eps, cluster, s);
+      return launch_fwd<kGelu>(x, gamma, beta, out, mean, var, nb, nc, nl,
+                               eps, cluster, s);
     default:
-      return launch_fwd_vec<kNone>(x, gamma, beta, out, mean, var, nb, nc,
-                                   nl, eps, cluster, s);
+      return launch_fwd<kNone>(x, gamma, beta, out, mean, var, nb, nc, nl,
+                               eps, cluster, s);
   }
 }
 
-// x, dout, dx (B, C, L); gamma, beta, mean, var, dgamma, dbeta (C,).
+// x, dout, dx (B, C, L); gamma, beta, mean, var, dgamma, dbeta (C,).  The
+// same launch as the forward's.
 int bn_act_bwd_f32(const float* x, const float* gamma, const float* beta,
                    const float* mean, const float* var, const float* dout,
                    float* dx, float* dgamma, float* dbeta, int nb, int nc,
-                   int nl, float eps, int act, void* stream) {
-  if (bad_shape(nb, nc, nl, act)) return (int)cudaErrorInvalidValue;
+                   int nl, float eps, int act, int cluster, void* stream) {
+  if (bad_shape(nb, nc, nl, act, cluster)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (act) {
     case kElu:
-      bn_act_bwd_kernel<kElu><<<nc, kThreads, 0, s>>>(
-          x, gamma, beta, mean, var, dout, dx, dgamma, dbeta, nb, nc, nl,
-          eps);
-      break;
+      return launch_bwd<kElu>(x, gamma, beta, mean, var, dout, dx, dgamma,
+                              dbeta, nb, nc, nl, eps, cluster, s);
     case kGelu:
-      bn_act_bwd_kernel<kGelu><<<nc, kThreads, 0, s>>>(
-          x, gamma, beta, mean, var, dout, dx, dgamma, dbeta, nb, nc, nl,
-          eps);
-      break;
+      return launch_bwd<kGelu>(x, gamma, beta, mean, var, dout, dx, dgamma,
+                               dbeta, nb, nc, nl, eps, cluster, s);
     default:
-      bn_act_bwd_kernel<kNone><<<nc, kThreads, 0, s>>>(
-          x, gamma, beta, mean, var, dout, dx, dgamma, dbeta, nb, nc, nl,
-          eps);
+      return launch_bwd<kNone>(x, gamma, beta, mean, var, dout, dx, dgamma,
+                               dbeta, nb, nc, nl, eps, cluster, s);
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -11,9 +11,9 @@ once.  Each object's compiler resource report (``-Xptxas -v``: registers,
 shared memory and spills of every kernel) is kept beside it as
 ``<object>.log``; ``build_logs`` returns them.
 
-Every C entry point returns the ``cudaGetLastError()`` of its launch;
-``check`` turns a non-zero code into an exception through the library's
-one error-string function, ``ocm_error_string``.
+Every C entry point returns the ``cudaGetLastError()`` of its launch (or
+of its query); ``check`` turns a non-zero code into an exception through
+the library's one error-string function, ``ocm_error_string``.
 """
 
 from __future__ import annotations
@@ -41,12 +41,13 @@ _P, _I, _F, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_uint64
 # entry point -> argument types (pointers and the stream as c_void_p)
 ENTRY_POINTS = {
-    "t2q_scores_multiclass_f32": [_P] * 6 + [_I] * 4 + [_P],
-    "t2q_scores_multiclass_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    "t2q_scores_multiclass_f32": [_P] * 6 + [_I] * 11 + [_P],
+    "t2q_scores_multiclass_bf16": [_P] * 6 + [_I] * 11 + [_P],
+    "ocm_device_limits": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "int8_tile_sum": [_P] * 2 + [_I] * 3 + [_P],
     "int8_gemm_s32": [_P] * 3 + [_I] * 4 + [_P],
     "bn_act_fwd_f32": [_P] * 6 + [_I] * 3 + [_F, _I, _I, _P],
-    "bn_act_bwd_f32": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    "bn_act_bwd_f32": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P],
     "reparam_kl_f32": [_P] * 5 + [_I] * 2 + [_P],
     "reparam_kl_sample_f32": [_P] * 5 + [_I] * 2 + [_U64] * 2 + [_P],
 }
@@ -150,6 +151,16 @@ def library() -> ctypes.CDLL:
     lib.ocm_error_string.argtypes = [ctypes.c_int]
     lib.ocm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple[int, int]:
+    """(SMs, the most shared memory a block may opt in to, bytes) of CUDA
+    device ``index``, which the launch plans size their grids by."""
+    sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+    check(library().ocm_device_limits(index, ctypes.byref(sms),
+                                      ctypes.byref(smem)), "device limits")
+    return sms.value, smem.value
 
 
 def check(err: int, what: str) -> None:

@@ -11,10 +11,10 @@ batch statistics, the fast variance ``max(E[x^2] - E[x]^2, 0)``, and
 
 Layout: torch's conv layout (B, C, L); statistics are taken over every
 axis but 1, with no relayout (JAX's module is channels-last, ``(..., C)``).
-K2 is one launch of thread block clusters: each channel is split over the
-``k2_cluster_size`` blocks of one cluster, which add their partial sums
-through distributed shared memory and normalise from registers (one read
-of x).  K3 runs one block a channel.
+K2 and K3 are each one launch of thread block clusters: each channel is
+split over the ``k2_cluster_size`` blocks of one cluster, which add their
+partial sums through distributed shared memory and then write out (K2) or
+dx (K3) from registers (one read of x, and of dout).
 The kernels take float32, contiguous, 3-d tensors; on a CPU tensor the
 wrappers compute the plain twins ``bn_act_fwd_plain``/``bn_act_bwd_plain``
 (same formulas), on a CUDA tensor they launch or raise.  There is no size
@@ -32,9 +32,9 @@ from ocm_tpu_torch.ops import _build
 from ocm_tpu_torch.ops.kernels import check_cuda_tensors, stream_of
 
 ACTS = ("elu", "gelu", "none")
-# K2's launch (csrc/bn_act.cu): threads a block, elements a thread keeps in
-# registers, the largest portable cluster, and the blocks it aims for (two
-# a SM of an H100's 132)
+# K2's and K3's launch (csrc/bn_act.cu): threads a block, elements a thread
+# keeps in registers (of x, and of dout in K3), the largest portable
+# cluster, and the blocks it aims for (two a SM of an H100's 132)
 K2_THREADS, K2_ITEMS, K2_MAX_CLUSTER, K2_BLOCKS = 256, 16, 8, 256
 
 
@@ -140,7 +140,7 @@ def _check(what, x, channel_vectors, like_x=None):
 
 
 def k2_cluster_size(nb: int, nc: int, nl: int) -> int:
-    """Blocks K2 splits each channel of a (nb, nc, nl) batch over: the
+    """Blocks K2 and K3 split each channel of a (nb, nc, nl) batch over: the
     smallest power of two (at most 8, the portable cluster size, so that a
     cluster's blocks are always co-resident) that gives ``K2_BLOCKS``
     blocks in all and a share of at most ``K2_ITEMS`` elements a thread,
@@ -189,7 +189,8 @@ def bn_act_bwd(x, gamma, beta, mean, var, dout, eps: float = 1e-5,
     """K3: gradient of ``bn_act_fwd``'s out w.r.t. x, gamma and beta.
 
     Returns (dx, dgamma, dbeta).  CPU tensors: the plain twin; CUDA
-    tensors: the kernel on the current stream.
+    tensors: the kernel on the current stream, one launch of C clusters of
+    ``k2_cluster_size`` blocks, as K2's.
     """
     code = _act_code(act)
     if x.device.type == "cpu":
@@ -204,7 +205,8 @@ def bn_act_bwd(x, gamma, beta, mean, var, dout, eps: float = 1e-5,
         err = _build.library().bn_act_bwd_f32(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
             var.data_ptr(), dout.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-            dbeta.data_ptr(), nb, nc, nl, eps, code, stream_of(x))
+            dbeta.data_ptr(), nb, nc, nl, eps, code,
+            k2_cluster_size(nb, nc, nl), stream_of(x))
     _build.check(err, "bn_act_bwd")
     bn_act_bwd.launches += 1
     return dx, dgamma, dbeta

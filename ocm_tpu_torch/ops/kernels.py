@@ -35,13 +35,90 @@ falls back.  ``<wrapper>.launches`` counts the kernel's launches.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from ocm_tpu_torch.ops import _build
 
 _INT_MAX = 2 ** 31 - 1
+
+# K1's launch (csrc/t2q_scores.cu): spectra a warp's unit (two a lane),
+# columns of x a pipelined chunk (a row of it padded by 4 values), the
+# most warps a CTA and the fewest that keep the models resident, the ring's
+# stages, the sums a spectrum holds in a pass, loading rows a task
+K1_UNIT, K1_CHUNK, K1_CHUNK_PAD = 64, 16, 4
+K1_MAX_WARPS, K1_RESIDENT_WARPS, K1_STAGES = 12, 8, (2, 3, 4)
+K1_MAX_ACC, K1_MAX_KB = 36, 32
+
+
+class K1Plan(NamedTuple):
+    """How K1 runs a call: one CTA an SM (``ctas``, persistent over units
+    of 64 spectra) of ``warps`` warps, each streaming its x through a ring
+    of ``stages`` chunks; the models of every class resident in shared
+    memory (``resident``), or staged ``window`` columns at a time; invcov
+    in shared memory or read from device memory; ``smem_bytes`` in all."""
+    resident: bool
+    warps: int
+    stages: int
+    ctas: int
+    window: int
+    icov_shared: bool
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def k1_plan(n: int, length: int, c: int, k: int, x_bytes: int, sms: int,
+            smem_max: int) -> K1Plan:
+    """K1's launch for x (n, length) of ``x_bytes`` an element (4 f32, 2
+    bf16) against c models of k loadings, on a card of ``sms`` SMs whose
+    blocks may opt in to ``smem_max`` bytes of shared memory.
+
+    Warps: enough for the units (64 spectra) of one wave over ``sms`` CTAs,
+    at most 12.  Resident where every class's model (KB + 1 rows of L
+    rounded up to 16, a task) fits beside at least 8 (or all) warps' rings
+    of 2 stages, with the most stages (up to 4) that fit; else staged, 2
+    stages, with the widest window of columns that fits.  Raises if even
+    one warp's ring and a 16-column window do not fit.  Cached: a pure
+    function of its arguments, called at every launch."""
+    if min(n, length, c, k, sms) < 1:
+        raise ValueError(f"k1_plan: empty shape n={n} L={length} C={c} "
+                         f"k={k} or sms={sms}")
+    kb = min(k, K1_MAX_KB)
+    tpc = -(-k // kb)
+    per_pass = max(1, K1_MAX_ACC // (kb + 1))
+    ntasks = c * tpc
+    lp = -(-length // K1_CHUNK) * K1_CHUNK
+    units = -(-n // K1_UNIT)
+    ctas = min(sms, units)
+    warps = min(K1_MAX_WARPS, -(-units // ctas))
+    icov = -(-(4 * c * k * k) // 16) * 16
+    icov_shared = icov <= smem_max // 4
+    fixed = icov if icov_shared else 0
+    ring = K1_UNIT * (K1_CHUNK + K1_CHUNK_PAD) * x_bytes
+    res = K1_UNIT * k * 4 if tpc > 1 else 0
+
+    def total(tasks, window, w, stages):
+        return tasks * (kb + 1) * window * 4 + fixed + w * (stages * ring
+                                                            + res)
+
+    for w in range(warps, min(warps, K1_RESIDENT_WARPS) - 1, -1):
+        for stages in reversed(K1_STAGES):
+            smem = total(ntasks, lp, w, stages)
+            if smem <= smem_max:
+                return K1Plan(True, w, stages, ctas, lp, icov_shared, smem)
+    stages, tasks = K1_STAGES[0], min(per_pass, ntasks)
+    for w in range(warps, 0, -1):
+        room = smem_max - total(0, 0, w, stages)
+        window = min(lp, room // (4 * tasks * (kb + 1)) // K1_CHUNK
+                     * K1_CHUNK)
+        if window >= K1_CHUNK:
+            return K1Plan(False, w, stages, ctas, window, icov_shared,
+                          total(tasks, window, w, stages))
+    raise ValueError(f"k1_plan: C={c} k={k} L={length} does not fit in "
+                     f"{smem_max} bytes of shared memory")
 
 
 def check_cuda_tensors(what, tensors, dtype=torch.float32):
@@ -87,8 +164,9 @@ def t2q_scores_multiclass(x, means, components, invcovs):
 
     CPU tensors: the plain twin.  CUDA tensors (contiguous; ``x`` float32
     or bfloat16, the rest float32): the hand-written kernel on the current
-    stream, its f32 or its bf16-input instantiation; ``launches`` and
-    ``launches_bf16`` count them.  Returns t2, q, each (C, N), f32.
+    stream, its f32 or its bf16-input instantiation, one launch by
+    ``k1_plan``; ``launches`` and ``launches_bf16`` count them.  Returns
+    t2, q, each (C, N), f32.
     """
     if x.device.type == "cpu":
         return t2q_scores_multiclass_plain(x, means, components, invcovs)
@@ -115,11 +193,15 @@ def t2q_scores_multiclass(x, means, components, invcovs):
         return t2, q
     with torch.cuda.device(x.device):
         lib = _build.library()
+        plan = k1_plan(n, length, c, k, x.element_size(),
+                       *_build.device_limits(x.device.index))
         entry = (lib.t2q_scores_multiclass_bf16 if bf16
                  else lib.t2q_scores_multiclass_f32)
         err = entry(x.data_ptr(), means.data_ptr(), components.data_ptr(),
                     invcovs.data_ptr(), t2.data_ptr(), q.data_ptr(),
-                    n, length, c, k, stream_of(x))
+                    n, length, c, k, plan.warps, plan.stages, plan.window,
+                    plan.resident, plan.icov_shared, plan.ctas,
+                    plan.smem_bytes, stream_of(x))
     _build.check(err, "t2q_scores_multiclass")
     if bf16:
         t2q_scores_multiclass.launches_bf16 += 1

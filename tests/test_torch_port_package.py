@@ -20,7 +20,7 @@ from ocm_tpu_torch.models import simca as TS
 from ocm_tpu_torch.models import trainer as TT
 from ocm_tpu_torch.models import vae as TV
 from ocm_tpu_torch.models import vae_decision, vaesimca
-from ocm_tpu_torch.ops import bn, kernels
+from ocm_tpu_torch.ops import _build, bn, kernels
 from ocm_tpu_torch.stats import metrics
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -178,14 +178,21 @@ def cuda():
 
 
 # (N, L, C, k, aligned): the bench's shapes cut in N, a ragged single
-# class, three class groups with chunks of L, k > 32 (two passes of loading
-# rows) with L not a multiple of 4, k = 1 (18 classes to a group) with C 20,
-# k = 33 (a one-row second pass), and x rows off 16-byte alignment (scalar
-# staging although L is a multiple of 4)
+# class, models staged a pass at a time (C 5, k 12, L 2000), k > 32 (two
+# tasks a class) with L not a multiple of 4, k = 1 (18 classes to a pass)
+# with C 20, k = 33 (a one-row second task), x rows off 16-byte alignment
+# (scalar staging although L is a multiple of 4), N below the CTA count, N
+# off the 64-row unit, units over three rounds of every CTA's 12 warps,
+# models staged in windows of L with warps that sit out a round, five
+# passes of nine classes (C 40, k 3), and k > 32 with an invcov read from
+# device memory (C 20, k 40)
 KERNEL_CASES = [(4096, 500, 3, 10, True), (137, 96, 1, 8, True),
                 (1000, 2000, 5, 12, True), (300, 203, 2, 40, True),
                 (500, 64, 20, 1, True), (200, 100, 2, 33, True),
-                (257, 96, 2, 5, False)]
+                (257, 96, 2, 5, False), (100, 500, 3, 10, True),
+                (8191, 500, 3, 10, True), (202757, 64, 3, 10, True),
+                (20000, 3000, 3, 12, True), (700, 96, 40, 3, True),
+                (300, 100, 20, 40, True)]
 
 
 @pytest.mark.cuda
@@ -214,6 +221,65 @@ def test_kernel_matches_plain_twin(cuda, case):
     torch.testing.assert_close(t2, t2_p, rtol=1e-4,
                                atol=1e-6 * t2_p.abs().mean().item())
     assert torch.all((q - q_p).abs() <= 1e-4 * xc2)
+
+
+# an H100's SMs and the shared memory a block may opt in to
+H100_LIMITS = (132, 232448)
+
+
+@pytest.mark.parametrize("n,x_bytes", [(98304, 4), (65536, 4), (65536, 2),
+                                       (98304, 2)], ids=str)
+def test_k1_plan_is_resident_at_the_path_shapes(n, x_bytes):
+    """The main path's scoring (98,304 x 500, C 3, k 10) and a serving
+    chunk (65,536), f32 and bf16: every model resident, one CTA an SM,
+    just enough warps for every unit of 64 spectra in one wave, 2-4
+    stages, within the 227 KB a block may use."""
+    plan = kernels.k1_plan(n, 500, 3, 10, x_bytes, *H100_LIMITS)
+    assert plan.resident and plan.icov_shared
+    units = -(-n // kernels.K1_UNIT)
+    assert plan.ctas == 132 and plan.warps == -(-units // 132)
+    assert 2 <= plan.stages <= 4
+    assert plan.window == -(-500 // kernels.K1_CHUNK) * kernels.K1_CHUNK
+    assert plan.smem_bytes <= H100_LIMITS[1]
+
+
+def test_k1_plan_stages_large_models():
+    """Models that do not fit in shared memory are staged a pass at a
+    time (C 5, k 12, L 2000: three passes of two classes), or in windows
+    of L (L 3000, several warps a CTA); a k whose scores do not fit beside
+    one warp's ring is refused."""
+    plan = kernels.k1_plan(1000, 2000, 5, 12, 4, *H100_LIMITS)
+    assert not plan.resident and plan.window == 2000
+    plan = kernels.k1_plan(20000, 3000, 3, 12, 4, *H100_LIMITS)
+    assert not plan.resident and plan.warps == 3
+    assert plan.window % kernels.K1_CHUNK == 0 and plan.window < 3000
+    with pytest.raises(ValueError, match="does not fit"):
+        kernels.k1_plan(100, 100, 1, 2000, 4, *H100_LIMITS)
+    with pytest.raises(ValueError, match="empty"):
+        kernels.k1_plan(0, 500, 3, 10, 4, *H100_LIMITS)
+
+
+@pytest.mark.parametrize("case", [(4096, 500, 3, 10), (137, 96, 1, 8),
+                                  (1000, 2000, 5, 12), (300, 203, 2, 40),
+                                  (500, 64, 20, 1), (200, 100, 2, 33),
+                                  (1, 1, 1, 1), (10 ** 6, 4000, 10, 32),
+                                  (1000, 500, 100, 32), (100, 100, 1, 300),
+                                  (202757, 64, 3, 10)], ids=str)
+@pytest.mark.parametrize("x_bytes", [4, 2])
+def test_k1_plan_is_valid(case, x_bytes):
+    """Any C and k: the plan fits, its window is whole chunks (all of L
+    when resident), its grid covers no more CTAs than units or SMs, and an
+    invcov too large for shared memory is read from device memory."""
+    n, length, c, k = case
+    plan = kernels.k1_plan(n, length, c, k, x_bytes, *H100_LIMITS)
+    lp = -(-length // kernels.K1_CHUNK) * kernels.K1_CHUNK
+    assert plan.smem_bytes <= H100_LIMITS[1]
+    assert 1 <= plan.warps <= kernels.K1_MAX_WARPS
+    assert plan.stages in kernels.K1_STAGES
+    assert 1 <= plan.ctas <= min(H100_LIMITS[0], -(-n // kernels.K1_UNIT))
+    assert plan.window % kernels.K1_CHUNK == 0 and 0 < plan.window <= lp
+    assert not plan.resident or plan.window == lp
+    assert plan.icov_shared == (4 * c * k * k <= H100_LIMITS[1] // 4)
 
 
 @pytest.mark.cuda
@@ -255,6 +321,18 @@ def test_k2_cluster_size_is_valid():
         size = bn.k2_cluster_size(nb, nc, nl)
         assert nc * size >= bn.K2_BLOCKS
         assert -(-nb * nl // size) <= bn.K2_ITEMS * bn.K2_THREADS
+
+
+@pytest.mark.parametrize("shape", TRAIN_BN_SHAPES, ids=str)
+def test_k3_cluster_size_is_valid(shape):
+    """K3 runs K2's launch (``k2_cluster_size``): at each train-step shape
+    ~256 blocks in all, and a block's share of x and of dout (two arrays of
+    K2_ITEMS a thread) in registers, so x and dout are read once."""
+    nb, nc, nl = shape
+    size = bn.k2_cluster_size(nb, nc, nl)
+    assert size == {32: 8, 64: 4, 128: 2}[nc]
+    assert nc * size == bn.K2_BLOCKS
+    assert -(-nb * nl // size) <= bn.K2_ITEMS * bn.K2_THREADS
 
 
 @pytest.mark.cuda
@@ -299,6 +377,65 @@ def test_bn_forward_unaligned_x_matches_plain_twin(cuda, nl):
     for a, want in zip(got, bn.bn_act_fwd_plain(x, g, b, 1e-5, "elu")):
         torch.testing.assert_close(a, want, rtol=1e-4,
                                    atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl", [252, 126, 7], ids=str)
+def test_bn_backward_unaligned_x_matches_plain_twin(cuda, nl):
+    """x and dout off 16- and 8-byte alignment: K3 falls back to narrower
+    loads."""
+    gen = torch.Generator().manual_seed(8)
+    nb, nc = 8, 32
+    x, dout = (torch.randn(nb * nc * nl + 1, generator=gen).to(cuda)[1:]
+               .view(nb, nc, nl) for _ in range(2))
+    g = (torch.rand(nc, generator=gen) + 0.5).to(cuda)
+    b = (torch.randn(nc, generator=gen) * 0.5).to(cuda)
+    mean, var = bn.bn_act_stats(x)
+    got = bn.bn_act_bwd(x, g, b, mean, var, dout)
+    torch.cuda.synchronize()
+    for a, want in zip(got, bn.bn_act_bwd_plain(x, g, b, mean, var, dout,
+                                                1e-5, "elu")):
+        torch.testing.assert_close(a, want, rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+# (B, C, L): channels of 8,000 elements (read again at cluster 1, held in
+# registers at 2-8), of 128,000 (read again at every size), and of 28,
+# fewer than a block's threads (empty shares at 2-8)
+BN_CLUSTER_SHAPES = [(8, 4, 1000), (64, 2, 2000), (4, 3, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", BN_CLUSTER_SHAPES, ids=str)
+def test_bn_kernels_at_every_cluster_size(cuda, shape, cluster):
+    """K2 and K3 launched through the library at a given cluster size
+    (the wrappers take k2_cluster_size's), against their twins."""
+    nb, nc, nl = shape
+    gen = torch.Generator().manual_seed(9)
+    x = (torch.randn(nb, nc, nl, generator=gen) * 1.5 + 0.3).to(cuda)
+    dout = torch.randn(nb, nc, nl, generator=gen).to(cuda)
+    g = (torch.rand(nc, generator=gen) + 0.5).to(cuda)
+    b = (torch.randn(nc, generator=gen) * 0.5).to(cuda)
+    out, dx = torch.empty_like(x), torch.empty_like(x)
+    mean, var, dg, db = (torch.empty(nc, device=cuda) for _ in range(4))
+    lib, stream = _build.library(), kernels.stream_of(x)
+    _build.check(lib.bn_act_fwd_f32(
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
+        mean.data_ptr(), var.data_ptr(), nb, nc, nl, 1e-5, 0, cluster,
+        stream), "bn_act_fwd")
+    _build.check(lib.bn_act_bwd_f32(
+        x.data_ptr(), g.data_ptr(), b.data_ptr(), mean.data_ptr(),
+        var.data_ptr(), dout.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+        db.data_ptr(), nb, nc, nl, 1e-5, 0, cluster, stream), "bn_act_bwd")
+    torch.cuda.synchronize()
+    want = (*bn.bn_act_fwd_plain(x, g, b, 1e-5, "elu"),
+            *bn.bn_act_bwd_plain(x, g, b, mean, var, dout, 1e-5, "elu"))
+    for got, ref, what in zip((out, mean, var, dx, dg, db), want,
+                              ("out", "mean", "var", "dx", "dg", "db")):
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-5 * ref.abs().max().item(),
+                                   msg=what)
 
 
 @pytest.mark.cuda
@@ -483,7 +620,10 @@ def test_int8_gemm_tile_edges_match_plain_twin(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(4096, 500, 3, 10), (300, 203, 2, 40),
-                                  (137, 96, 1, 8)], ids=str)
+                                  (137, 96, 1, 8), (100, 500, 3, 10),
+                                  (8191, 500, 3, 10), (202757, 64, 3, 10),
+                                  (1000, 2000, 5, 12), (20000, 3000, 3, 12)],
+                         ids=str)
 def test_bf16_kernel_matches_plain_twin(cuda, case):
     n, length, c, k = case
     gen = torch.Generator().manual_seed(6)
