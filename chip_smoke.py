@@ -1,7 +1,7 @@
 """Chip smoke run of the PyTorch/CUDA port (``ocm_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py                   # every phase below
-    python3 chip_smoke.py --kernel-times    # K1, K2, K3, K7, K8 timings only
+    python3 chip_smoke.py --kernel-times    # kernel timings only
 
 ``--kernel-times`` times the kernels of the package beside the script;
 a copy of the script placed in an unpacked older tree times that tree's,
@@ -16,8 +16,8 @@ CUDA kernel against its plain PyTorch twin:
 - the VAE (second slice): ``train_vae`` of the entry model
   (``ConvVAE1D(501, 16)``, 3 conv blocks, 32 filters) on 640 spectra for
   20 epochs at batch 64 (``bench_all.py``'s training workload), through
-  kernels K2/K3 (BatchNorm + activation, forward/backward) and K4
-  (reparameterize + KL);
+  kernels K2/K3 (BatchNorm + activation, forward/backward), K4
+  (reparameterize + KL) and K6's backward (its VJP);
 - the VAE decisions (third slice): ``bench_all.py``'s VAE-SIMCA workload
   (512 calibration spectra, 3 epochs at batch 64, cosine loss), the
   thresholds deterministic and with the reference's sampled forward
@@ -46,18 +46,27 @@ Phases, each of which exits non-zero on failure:
    card's f32 fit against the port's own f64 CPU fit of the same data;
 5. SIMCA timings with CUDA events (median after warm-up);
 6. K2/K3 vs their twins at the six BatchNorm shapes of the train step
-   (plus GELU and no activation), with K2's cluster size at each, K4 at
-   (64, 16) and (300, 5), and K6's gradients against autograd through the
-   plain twin;
-7. VAE main path: launches counted (exactly 1200 K2, 1200 K3, 220 K4),
+   (plus GELU and no activation), with K2's cluster size at each; K4 and
+   K6's backward kernel vs their twins at (64, 16), (300, 5), (1, 1),
+   (7, 33), (1,000, 64) and (3, 129) (and mu one float off alignment),
+   and K6's gradients against autograd through the plain twin, with dz
+   non-contiguous and dkl the stride-0 expand of ``kl.mean()``'s
+   gradient; K4, K6's backward and K5 launched straight after the Linear
+   that writes their input (they are programmatic dependents, which must
+   wait for its writes);
+7. VAE main path: launches counted (exactly 1200 K2, 1200 K3, 220 K4,
+   200 K6 backward),
    finite and falling losses, one train step on the card in f32 against
    the port's CPU f64, and the entry model's forward and cosine loss;
 8. VAE timings: one train step, the 20-epoch run, and each kernel beside
    its bound, its twin and the nearest PyTorch call (K2 and K3 over inputs
-   that rotate past the L2, and L2-warm);
-9. K5 vs its plain twin at (512, 16), (65,536, 16) and (300, 5): the
-   kernel's own noise, z and KL, determinism and keying, and the noise's
-   moments, Kolmogorov-Smirnov distance and neighbour correlations;
+   that rotate past the L2, and L2-warm; K4 and K6's backward beside the
+   launch floor, the empty kernel's device time, and each after the
+   Linear that writes its input);
+9. K5 vs its plain twin at (512, 16), (64, 16), (65,536, 16), (300, 5),
+   (7, 33) and (3, 129): the kernel's own noise (bit-equal), z and KL,
+   determinism and keying, and the noise's moments, Kolmogorov-Smirnov
+   distance and neighbour correlations;
 10. the decision path as a user calls it (numpy in): train, calibrate
    (exactly 1 K5 launch for the sampled calibration, none otherwise),
    ``fit_vaesimca``, the six screens (no K5), the 3-class stacked screen
@@ -67,8 +76,9 @@ Phases, each of which exits non-zero on failure:
    thresholds, limits, and a 4,096-spectrum screen per variant;
 12. decision timings: each screen, the calibration fits, a torch.profiler
    breakdown of one ``vaesimca`` chunk, the cost of cuDNN's deterministic
-   mode, where a chunk of pinned 'f' spends its time, and K5 beside its
-   bound and twin;
+   mode, where a chunk of pinned 'f' spends its time, and K5 at (512, 16)
+   and (65,536, 16) beside its bound, its twin, ``torch.randn`` then K4,
+   and the launch floor;
 13. K7 and K8 against their twins by integer equality (the probe's shapes
    and tiles, the scoring shape, ragged shapes), bf16 K1 at the serving
    shape and an odd L;
@@ -129,13 +139,22 @@ SEED = 0
 VAE_KW = dict(input_length=501, latent_dim=16, conv_blocks=3, n_filters=32,
               kernel_size=9, stride=2, hidden_fc=256, activation="elu")
 VAE_N, VAE_BATCH, VAE_EPOCHS = 640, 64, 20
+# K4 and K6's backward against their twins at these (N, k) (phase 6)
+REPARAM_SHAPES = [(64, 16), (300, 5), (1, 1), (7, 33), (1000, 64), (3, 129)]
+# K5 against its twin at these (phase 9): the calibration's, the sampled
+# entry forward's and the screen chunk's latent shapes, then odd k (pairs
+# straddle rows), odd k above 32 and past 128
+SAMPLE_SHAPES = [(512, 16), (64, 16), (65536, 16), (300, 5), (7, 33),
+                 (3, 129)]
 # the (B, C, L) of each BatchNorm of the entry model in one train step
 TRAIN_BN_SHAPES = [(64, 32, 501), (64, 64, 251), (64, 128, 126),
                    (64, 64, 252), (64, 32, 504), (64, 32, 504)]
 BN_EPS = 1e-5
 # f32 operations per element (the TPU kernels' own cost estimates,
-# ocm_tpu/ops/bn.py:140,162) and per latent entry of K4
-K2_OPS, K3_OPS, K4_OPS = 10, 16, 8
+# ocm_tpu/ops/bn.py:140,162) and per latent entry of K4 and of K6's
+# backward (dmu: a multiply-add; dlv: two exps, a halving, five multiplies
+# and adds, a subtraction and a difference)
+K2_OPS, K3_OPS, K4_OPS, K6_OPS = 10, 16, 8, 12
 # K5's operations per element pair, each counted at the f32 rate: ten
 # Philox rounds of 2 mulhi, 2 mullo, 4 xor, 2 key adds (100); per element
 # Box-Muller's shifts, conversions, scalings, log, sqrt and cos (12) and
@@ -416,27 +435,85 @@ def compare_bn(shape, act, gen, dev):
             max((a - r).abs().max().item() for a, r in zip(got[3:], ref[3:])))
 
 
-def compare_reparam(shape, gen, dev):
-    """K4 and K6 against the plain twin and autograd through it.
-    Tolerance 1e-5 of scale: elementwise exp and a k-term f32 row sum."""
-    mu, lv, eps, dz = (torch.randn(4, *shape, generator=gen) * 0.8).to(dev)
-    dkl = torch.randn(shape[0], generator=gen).to(dev)
+def compare_reparam(shape, gen, dev, mu_offset=0):
+    """K4 and K6's backward kernel against the plain twins, and K6's
+    gradients against autograd through the plain forward, for two kinds
+    of upstream gradient: dz and dkl dense, and dz non-contiguous with dkl
+    the stride-0 expand that ``kl.mean()``'s gradient arrives as.  With
+    ``mu_offset`` mu starts that many floats past an aligned base, off the
+    vector path.  Tolerance 1e-5 of scale: elementwise exp and a k-term
+    f32 row sum."""
+    n, k = shape
+    flat = (torch.randn(n * k + mu_offset, generator=gen) * 0.8).to(dev)
+    mu = flat[mu_offset:].view(n, k)
+    lv, eps, dz = (torch.randn(3, *shape, generator=gen) * 0.8).to(dev)
+    dkl = torch.randn(n, generator=gen).to(dev)
+    upstream = {"dense": (dz, dkl),
+                "strided": (dz.T.contiguous().T,
+                            torch.full((), 1.0 / n, device=dev).expand(n))}
     z, kl = kernels.reparam_kl(mu, lv, eps)
     z_p, kl_p = kernels.reparam_kl_plain(mu, lv, eps)
-    grads = []
-    for fn in (kernels.fused_reparam_kl, kernels.reparam_kl_plain):
-        m, v = mu.clone().requires_grad_(), lv.clone().requires_grad_()
-        torch.autograd.backward(fn(m, v, eps), (dz, dkl))
-        grads.append((m.grad, v.grad))
+    errs = {"z": rel_err(z, z_p), "kl": rel_err(kl, kl_p)}
+    for label, grads in upstream.items():
+        got = []
+        for fn in (kernels.fused_reparam_kl, kernels.reparam_kl_plain):
+            m, v = mu.clone().requires_grad_(), lv.clone().requires_grad_()
+            torch.autograd.backward(fn(m, v, eps), grads)
+            got.append((m.grad, v.grad))
+        got.append(kernels.reparam_kl_bwd(mu, lv, eps, *grads))
+        ref = kernels.reparam_kl_bwd_plain(mu, lv, eps, *grads)
+        for i, name in enumerate(("dmu", "dlogvar")):
+            errs[f"{name} {label}"] = rel_err(got[0][i], got[1][i])
+            errs[f"{name} {label} kernel vs twin"] = rel_err(got[2][i], ref[i])
     torch.cuda.synchronize()
-    errs = {"z": rel_err(z, z_p), "kl": rel_err(kl, kl_p),
-            "dmu": rel_err(grads[0][0], grads[1][0]),
-            "dlogvar": rel_err(grads[0][1], grads[1][1])}
+    align = next(a for a in (16, 8, 4) if mu.data_ptr() % a == 0)
     print(json.dumps({"phase": "reparam_vs_plain", "shape": shape,
+                      "mu_offset": mu_offset,
+                      "plan": kernels.reparam_plan(n, k, align),
                       "rel_err_of_scale": errs}), flush=True)
-    for n, e in errs.items():
-        check(e <= 1e-5, f"reparam {shape}: {n} error {e} > 1e-5 of scale")
-    return max((z - z_p).abs().max().item(), (kl - kl_p).abs().max().item())
+    for name, e in errs.items():
+        check(e <= 1e-5, f"reparam {shape}: {name} error {e} > 1e-5 of scale")
+    return (max((z - z_p).abs().max().item(), (kl - kl_p).abs().max().item()),
+            max((a - r).abs().max().item() for a, r in zip(got[2], ref)))
+
+
+def compare_after_linear(gen, dev, reps=20):
+    """K4, K6's backward and K5 launched straight after the Linear that
+    writes one of their inputs, as ``fc_logvar`` (or the decoder's first
+    product, for dz) does on the path.  They are launched as programmatic
+    dependents and may start before the product ends, so each must wait
+    for its writes; every rep gets a new input, so a read of the buffer's
+    earlier contents would differ from the twin.  Tolerance 1e-5 of scale
+    (K5's noise itself bit-equal).  Returns the max abs error."""
+    n, k, hidden = VAE_BATCH, VAE_KW["latent_dim"], VAE_KW["hidden_fc"]
+    fc = torch.nn.Linear(hidden, k).to(dev).requires_grad_(False)
+    mu, lv, eps = (torch.randn(3, n, k, generator=gen) * 0.8).to(dev)
+    dkl = torch.full((), 1.0 / n, device=dev).expand(n)
+    hs = [torch.randn(n, hidden, generator=gen).to(dev) for _ in range(reps)]
+    torch.cuda.synchronize()
+    got = [(kernels.reparam_kl(mu, fc(h), eps),
+            kernels.reparam_kl_bwd(mu, lv, eps, fc(h), dkl),
+            kernels.reparam_kl_sample(mu, fc(h), i, return_eps=True))
+           for i, h in enumerate(hs)]
+    torch.cuda.synchronize()
+    errs, worst, eps_equal = {"k4": 0.0, "k6_bwd": 0.0, "k5": 0.0}, 0.0, True
+    for i, (h, (k4, k6, k5)) in enumerate(zip(hs, got)):
+        out = fc(h)
+        refs = {"k4": kernels.reparam_kl_plain(mu, out, eps),
+                "k6_bwd": kernels.reparam_kl_bwd_plain(mu, lv, eps, out, dkl),
+                "k5": kernels.reparam_kl_sample_plain(mu, out, i)}
+        for name, res in (("k4", k4), ("k6_bwd", k6), ("k5", k5)):
+            for a, r in zip(res, refs[name]):
+                errs[name] = max(errs[name], rel_err(a, r))
+                worst = max(worst, (a - r).abs().max().item())
+        eps_equal &= bool(torch.equal(k5[2], refs["k5"][2]))
+    print(json.dumps({"phase": "reparam_after_linear", "reps": reps,
+                      "rel_err_of_scale": errs, "k5_eps_bit_equal":
+                      eps_equal}), flush=True)
+    for name, e in errs.items():
+        check(e <= 1e-5, f"{name} after a Linear: error {e} > 1e-5 of scale")
+    check(eps_equal, "K5 after a Linear: its noise differs from the twin's")
+    return worst
 
 
 def path_bn_shapes(dev):
@@ -524,6 +601,7 @@ def entry_forward_vs_cpu_f64(dev):
 
 KERNEL_GROUPS = (("K2/K3 bn_act", ("bn_act",)),
                  ("K5 reparam_kl_sample", ("reparam_kl_sample",)),
+                 ("K6 reparam_kl_bwd", ("reparam_kl_bwd",)),
                  ("K4 reparam_kl", ("reparam_kl",)),
                  ("conv (cuDNN)", ("conv", "cudnn", "dgrad", "wgrad",
                                    "fprop")),
@@ -677,16 +755,88 @@ def time_bn(shapes, gen, dev, bw, f32_rate):
     return tot, {k: "/".join(sorted(v)) for k, v in bound_by.items()}
 
 
+def launch_floor_ms(dev):
+    """Device ms of one launch of the library's empty kernel through the
+    same ctypes path as every kernel: the least any launch of the port
+    costs on this card.  None in an older tree of the package, which has
+    no empty kernel."""
+    noop = getattr(kernels, "noop", None)
+    return None if noop is None else device_ms(lambda: noop(dev))
+
+
+def bound_of(nbytes, ops, bw, f32_rate):
+    bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * ops / f32_rate
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def time_reparam_train(dev, gen, bw, f32_rate):
+    """K4 and K6's backward at the train batch (64, 16), L2-warm as the
+    train step sees them, each beside its bound, its twin (for K6 the
+    eager backward it replaced) and the launch floor; K6's backward also
+    through autograd (``fused_reparam_kl``), as the train step runs it;
+    and the chained pair the forward sits in, the ``fc_logvar`` Linear
+    then K4 on its output.  K6's kernel and twin are None in an older tree
+    of the package, whose backward is eager (its autograd time is then
+    the eager one's)."""
+    n, k = VAE_BATCH, VAE_KW["latent_dim"]
+    mu, lv, eps, dz = (torch.randn(4, n, k, generator=gen) * 0.8).to(dev)
+    dkl = torch.full((), 1.0 / n, device=dev).expand(n)   # kl.mean()'s
+    m, v = mu.clone().requires_grad_(), lv.clone().requires_grad_()
+    z, kl = kernels.fused_reparam_kl(m, v, eps)
+    bwd = getattr(kernels, "reparam_kl_bwd", None)
+    bwd_plain = getattr(kernels, "reparam_kl_bwd_plain", None)
+    fc = torch.nn.Linear(VAE_KW["hidden_fc"], k).to(dev)
+    h = torch.randn(n, VAE_KW["hidden_fc"], generator=gen).to(dev)
+    line = {
+        "shape": (n, k), "launch_floor_ms": launch_floor_ms(dev),
+        "k4_ms": device_ms(lambda: kernels.reparam_kl(mu, lv, eps)),
+        "k4_call_ms": median_ms(lambda: kernels.reparam_kl(mu, lv, eps), 3,
+                                21),
+        "k4_plain_ms": device_ms(lambda: kernels.reparam_kl_plain(mu, lv,
+                                                                  eps)),
+        **{f"k4_{key}": val for key, val in bound_of(
+            16 * n * k + 4 * n, K4_OPS * n * k, bw, f32_rate).items()},
+        "k4_library_ms": None,
+        "k4_library_reason": "no single PyTorch call computes z and the "
+                             "per-sample KL",
+        "k6_bwd_ms": None if bwd is None else device_ms(
+            lambda: bwd(mu, lv, eps, dz, dkl)),
+        "k6_bwd_call_ms": None if bwd is None else median_ms(
+            lambda: bwd(mu, lv, eps, dz, dkl), 3, 21),
+        "k6_bwd_plain_ms": None if bwd_plain is None else device_ms(
+            lambda: bwd_plain(mu, lv, eps, dz, dkl)),
+        "k6_bwd_autograd_ms": device_ms(lambda: torch.autograd.grad(
+            (z, kl), (m, v), (dz, dkl), retain_graph=True)),
+        # mu, lv, eps, dz read, one dkl value (stride 0), dmu, dlv written
+        **{f"k6_bwd_{key}": val for key, val in bound_of(
+            24 * n * k + 4, K6_OPS * n * k, bw, f32_rate).items()},
+        "k6_bwd_library_ms": None,
+        "k6_bwd_library_reason": "no single PyTorch call computes both "
+                                 "gradients; autograd through the plain "
+                                 "forward is the eager backward's launches",
+    }
+    with torch.no_grad():
+        line["fc_logvar_ms"] = device_ms(lambda: fc(h))
+        line["fc_logvar_then_k4_ms"] = device_ms(
+            lambda: kernels.reparam_kl(mu, fc(h), eps))
+        # the same Linear writing dz, then K6's backward
+        line["fc_then_k6_bwd_ms"] = None if bwd is None else device_ms(
+            lambda: bwd(mu, lv, eps, fc(h), dkl))
+    print(json.dumps({"phase": "reparam_train_timing", **line}), flush=True)
+    return line
+
+
 # --- the decision slice -----------------------------------------------------
 
 def compare_sample(shape, gen, dev, seed=0x5EED_0123_4567_89AB, offset=7):
     """K5 against its plain twin on the same mu, logvar, seed and offset.
-    The twin reproduces the kernel's Philox bits exactly, so the kernel's
-    own noise must equal the twin's to 1e-6 of max(|eps|, 1) (the device's
-    f32 log, cos and sqrt against torch's, a few ulp apart), and z and KL
-    to 1e-6 of their scale.  The same seed must give identical output,
-    another seed or offset other output.  Returns (max abs error of z and
-    KL, the kernel's noise)."""
+    The twin reproduces the kernel's Philox bits and takes them through
+    the same f32 log, cos and sqrt, so the kernel's own noise must equal
+    the twin's bit for bit, and z and KL must be within 1e-6 of their
+    scale (exp, a fused multiply-add, the row sum's order).  The same
+    seed must give identical output, another seed or offset other output.
+    Returns (max abs error of z and KL, the kernel's noise)."""
     mu, lv = (torch.randn(2, *shape, generator=gen) * 0.8).to(dev)
     z, kl, eps = kernels.reparam_kl_sample(mu, lv, seed, offset,
                                            return_eps=True)
@@ -695,16 +845,19 @@ def compare_sample(shape, gen, dev, seed=0x5EED_0123_4567_89AB, offset=7):
     z_seed = kernels.reparam_kl_sample(mu, lv, seed + 1, offset)[0]
     z_off = kernels.reparam_kl_sample(mu, lv, seed, offset + 1)[0]
     torch.cuda.synchronize()
-    errs = {"eps": ((eps - eps_p).abs()
-                    / eps_p.abs().clamp_min(1.0)).max().item(),
-            "z": rel_err(z, z_p), "kl": rel_err(kl, kl_p)}
+    errs = {"z": rel_err(z, z_p), "kl": rel_err(kl, kl_p)}
+    eps_equal = bool(torch.equal(eps, eps_p))
     same = bool(torch.equal(z, z2) and torch.equal(kl, kl2))
     keyed = not (torch.equal(z, z_seed) or torch.equal(z, z_off))
     print(json.dumps({"phase": "reparam_sample_vs_plain", "shape": shape,
+                      "plan": kernels.reparam_plan(*shape, sampled=True),
+                      "eps_bit_equal": eps_equal,
+                      "eps_max_abs_diff": (eps - eps_p).abs().max().item(),
                       "rel_err": errs, "same_seed_identical": same,
                       "other_seed_or_offset_differs": keyed}), flush=True)
     for n, e in errs.items():
         check(e <= 1e-6, f"K5 {shape}: {n} error {e} > 1e-6")
+    check(eps_equal, f"K5 {shape}: its noise differs from the twin's")
     check(same, f"K5 {shape}: the same seed gave different output")
     check(keyed, f"K5 {shape}: another seed or offset gave the same output")
     return max((z - z_p).abs().max().item(),
@@ -958,9 +1111,11 @@ def time_sample(shape, gen, dev, bw, f32_rate):
     n, k = shape
     mu, lv = (torch.randn(2, n, k, generator=gen) * 0.8).to(dev)
     eps = torch.randn(n, k, generator=gen).to(dev)
+    fc = torch.nn.Linear(VAE_KW["hidden_fc"], k).to(dev).requires_grad_(False)
+    h = torch.randn(n, VAE_KW["hidden_fc"], generator=gen).to(dev)
     bytes_ms = 1e3 * (12 * n * k + 4 * n) / bw
     ops_ms = 1e3 * K5_OPS_PER_PAIR * ((n * k + 1) // 2) / f32_rate
-    line = {"shape": shape,
+    line = {"shape": shape, "launch_floor_ms": launch_floor_ms(dev),
             "ms": device_ms(lambda: kernels.reparam_kl_sample(mu, lv, 1)),
             "call_ms": median_ms(lambda: kernels.reparam_kl_sample(mu, lv, 1),
                                  3, 21),
@@ -971,6 +1126,10 @@ def time_sample(shape, gen, dev, bw, f32_rate):
                 mu, lv, torch.randn(n, k, device=dev))),
             "k4_given_eps_ms": device_ms(lambda: kernels.reparam_kl(
                 mu, lv, eps)),
+            # the chained pair of the sampled forward: fc_logvar, then K5
+            "fc_logvar_ms": device_ms(lambda: fc(h)),
+            "fc_logvar_then_ms": device_ms(
+                lambda: kernels.reparam_kl_sample(mu, fc(h), 1)),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
@@ -983,15 +1142,16 @@ def time_sample(shape, gen, dev, bw, f32_rate):
 
 def decision_phases(dev, card, bw, f32_rate):
     """Phases 9-12, the decision slice; returns K5's kernel record."""
-    # 9. K5 against its plain twin: the calibration's shape, the screen's
-    #    width, and a ragged odd k whose element pairs straddle rows
+    # 9. K5 against its plain twin at SAMPLE_SHAPES; the noise statistics
+    #    of the screen chunk's 1,048,576 draws
     gen = torch.Generator().manual_seed(5)
-    k5_err, big_eps = compare_sample((DEC_N_TEST, VAE_KW["latent_dim"]), gen, dev)
-    k5_err = max(k5_err, compare_sample((DEC_N_CAL, VAE_KW["latent_dim"]),
-                                        gen, dev)[0],
-                 compare_sample((300, 5), gen, dev)[0])
-    noise_statistics(big_eps)
-    del big_eps
+    k5_err = 0.0
+    for shape in SAMPLE_SHAPES:
+        err, eps = compare_sample(shape, gen, dev)
+        k5_err = max(k5_err, err)
+        if shape == (DEC_N_TEST, VAE_KW["latent_dim"]):
+            noise_statistics(eps)
+        del eps
 
     # 10. the decision path, as a user calls it (numpy in, CUDA by
     #     default), with K5's launches read after each step
@@ -1609,8 +1769,11 @@ def k1_kernel_timings(dev, gen, bw, f32_rate):
 def kernel_times(dev, card, name):
     """``--kernel-times``: only the timings of K1 and bf16 K1
     (``k1_kernel_timings``), K2/K3 (the train step's six shapes, rotating
-    past the L2 and L2-warm) and K7/K8 (the probe's tiles, the scoring
-    shape), through the package beside this file.  A copy of this script
+    past the L2 and L2-warm), K7/K8 (the probe's tiles, the scoring
+    shape), K4, K6's backward and the ``fc_logvar`` Linear then K4 at the
+    train batch (``time_reparam_train``), K5 at (512, 16) and (65,536, 16)
+    (``time_sample``) and the launch floor, through the package beside
+    this file.  A copy of this script
     in another tree of the repo times that tree's kernels the same way, so
     two versions can be timed in turns within one chip call."""
     bw, f32_rate, int8_rate = peaks(name)
@@ -1623,17 +1786,21 @@ def kernel_times(dev, card, name):
     xq, wq = int8_probe.make_inputs(n, lp, dev)
     int8_t = int8_kernel_timings(dev, torch.Generator().manual_seed(13), bw,
                                  int8_rate, xq, wq)
+    gen = torch.Generator().manual_seed(7)
+    reparam_t = time_reparam_train(dev, gen, bw, f32_rate)
+    k5_t = {n: time_sample((n, VAE_KW["latent_dim"]), gen, dev, bw, f32_rate)
+            for n in (DEC_N_CAL, DEC_N_TEST)}
     print(json.dumps({"phase": "kernel_times", "card": card,
                       "package": os.path.dirname(os.path.dirname(
                           os.path.abspath(bn.__file__))),
-                      "k1": k1_t, "bn": bn_t, "int8": int8_t}), flush=True)
+                      "k1": k1_t, "bn": bn_t, "int8": int8_t,
+                      "reparam": reparam_t, "k5": k5_t}), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
-                    help="time K1, K2, K3, K7 and K8 only (see "
-                         "kernel_times)")
+                    help="time the kernels only (see kernel_times)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1780,28 +1947,36 @@ def main(argv=None) -> int:
             (shapes[0], "gelu"), (shapes[0], "none")]:
         e2, e3 = compare_bn(shape, act, gen, dev)
         k2_err, k3_err = max(k2_err, e2), max(k3_err, e3)
-    k4_err = max(compare_reparam((VAE_BATCH, VAE_KW["latent_dim"]), gen, dev),
-                 compare_reparam((300, 5), gen, dev))
+    # K4 and K6's backward: the train batch, odd k, one element, ragged k
+    # above 32, a long batch, k past 128; then mu one float off alignment
+    reparam_errs = [compare_reparam(sh, gen, dev) for sh in REPARAM_SHAPES]
+    reparam_errs += [compare_reparam(sh, gen, dev, mu_offset=1)
+                     for sh in ((VAE_BATCH, VAE_KW["latent_dim"]), (1000, 64))]
+    chained_err = compare_after_linear(gen, dev)
+    k4_err = max(chained_err, *(e[0] for e in reparam_errs))
+    k6_err = max(chained_err, *(e[1] for e in reparam_errs))
 
     # 7. the VAE main path, as a user calls it, with the launch counts read
     x_vae = vae_workload()
     cfg = vae_trainer.TrainConfig(epochs=VAE_EPOCHS, batch_size=VAE_BATCH,
                                   lr=1e-3, loss_type="bce")
     bn.bn_act_fwd.launches = bn.bn_act_bwd.launches = 0
-    kernels.reparam_kl.launches = 0
+    kernels.reparam_kl.launches = kernels.reparam_kl_bwd.launches = 0
     result = vae_trainer.train_vae(ConvVAE1D(**VAE_KW), x_vae,
                                    x_vae[:VAE_BATCH], cfg, seed=0)
     torch.cuda.synchronize()
     vae_launches = {"bn_act_fwd": bn.bn_act_fwd.launches,
                     "bn_act_bwd": bn.bn_act_bwd.launches,
-                    "reparam_kl": kernels.reparam_kl.launches}
+                    "reparam_kl": kernels.reparam_kl.launches,
+                    "reparam_kl_bwd": kernels.reparam_kl_bwd.launches}
     tl, vl = result.train_losses, result.val_losses
     print(json.dumps({"phase": "vae_main_path", "launches": vae_launches,
                       "train_losses": tl.tolist(), "val_losses": vl.tolist(),
                       "best_epoch": result.best_epoch}), flush=True)
     steps = VAE_EPOCHS * -(-VAE_N // VAE_BATCH)
     check(vae_launches == {"bn_act_fwd": 6 * steps, "bn_act_bwd": 6 * steps,
-                           "reparam_kl": steps + VAE_EPOCHS},
+                           "reparam_kl": steps + VAE_EPOCHS,
+                           "reparam_kl_bwd": steps},
           f"VAE launch counts {vae_launches}")
     check(bool(np.isfinite(tl).all() and np.isfinite(vl).all()),
           "a VAE loss is not finite")
@@ -1823,21 +1998,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     train_vae_ms = 1e3 * (time.perf_counter() - t0)
     bn_t, bn_bound_by = time_bn(shapes, gen, dev, bw, f32_rate)
-    n_lat, k_lat = VAE_BATCH, VAE_KW["latent_dim"]
-    mu, lv, eps4 = (torch.randn(3, n_lat, k_lat, generator=gen) * 0.8).to(dev)
-    k4_ms = device_ms(lambda: kernels.reparam_kl(mu, lv, eps4))
-    k4_call_ms = median_ms(lambda: kernels.reparam_kl(mu, lv, eps4), 3, 21)
-    k4_plain_ms = device_ms(lambda: kernels.reparam_kl_plain(mu, lv, eps4))
-    k4_bytes_ms = 1e3 * (16 * n_lat * k_lat + 4 * n_lat) / bw
-    k4_ops_ms = 1e3 * K4_OPS * n_lat * k_lat / f32_rate
+    rt = time_reparam_train(dev, gen, bw, f32_rate)
     print(json.dumps({"phase": "vae_timings", "card": card,
                       "train_step_ms": train_step_ms,
                       "train_vae_ms": train_vae_ms,
-                      "steps": steps, **bn_t, "k4_ms": k4_ms,
-                      "k4_plain_ms": k4_plain_ms, "k4_call_ms": k4_call_ms,
-                      "k4_library_ms": None,
-                      "k4_library_reason": "no single PyTorch call computes "
-                                           "z and the per-sample KL"}),
+                      "steps": steps, **bn_t,
+                      **{key: rt[key] for key in rt if key != "shape"}}),
           flush=True)
     records += [
         {"name": "bn_act_fwd", "route": "cuda",
@@ -1858,13 +2024,18 @@ def main(argv=None) -> int:
          "source": "ocm_tpu_torch/csrc/reparam_kl.cu",
          "replaces": "ocm_tpu/ops/kernels.py:110",
          "launches": vae_launches["reparam_kl"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms,
-         "bound_ms": max(k4_bytes_ms, k4_ops_ms),
-         "bound_by": "bytes" if k4_bytes_ms >= k4_ops_ms else "operations",
-         "library_ms": None}]
-    check(all(math.isfinite(v) for v in (train_step_ms, train_vae_ms, k4_ms,
-                                         *bn_t.values())),
-          "a VAE timing is not finite")
+         **{f: rt[f"k4_{f}"] for f in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}},
+        {"name": "reparam_kl_bwd", "route": "cuda",
+         "source": "ocm_tpu_torch/csrc/reparam_kl.cu",
+         "replaces": "ocm_tpu/ops/kernels.py:192",
+         "launches": vae_launches["reparam_kl_bwd"], "max_abs_err": k6_err,
+         **{f: rt[f"k6_bwd_{f}"] for f in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}}]
+    check(all(math.isfinite(v) for v in (
+        train_step_ms, train_vae_ms, *bn_t.values(), rt["launch_floor_ms"],
+        rt["k4_ms"], rt["k6_bwd_ms"], rt["k6_bwd_plain_ms"],
+        rt["fc_logvar_then_k4_ms"])), "a VAE timing is not finite")
 
     k5_record, decisions = decision_phases(dev, card, bw, f32_rate)
     records.append(k5_record)

@@ -150,31 +150,6 @@ struct Share {
   }
 };
 
-// V consecutive floats (V = 1, 2, 4) of one row, as one load or store.
-template <int V>
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else if constexpr (V == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x, v[1] = t.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    *p = v[0];
-  }
-}
-
 __device__ __forceinline__ int cluster_blocks() {
   return (int)cooperative_groups::this_cluster().num_blocks();
 }
@@ -386,14 +361,6 @@ int launch_clusters(void (*kernel)(Params...), int nc, int cluster,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-}
-
-// The widest vector (4, 2 or 1 floats) that every row of L and every one
-// of the tensors' bases allow.
-int vec_width(int nl, size_t align) {
-  if (nl % 4 == 0 && align % 16 == 0) return 4;
-  if (nl % 2 == 0 && align % 8 == 0) return 2;
-  return 1;
 }
 
 template <int A>

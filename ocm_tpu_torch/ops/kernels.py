@@ -18,7 +18,8 @@
   noise (``ocm_tpu/ops/kernels.py:110``): ``z = mu + eps * exp(lv / 2)``
   and the per-sample KL (``ocm_tpu_torch/csrc/reparam_kl.cu``).
   ``fused_reparam_kl`` (``ocm_tpu/ops/kernels.py:192``) wraps it in a
-  ``torch.autograd.Function`` with the analytic backward.
+  ``torch.autograd.Function`` whose backward, the analytic VJP, is the
+  kernel ``reparam_kl_bwd`` (the same source).
 - ``reparam_kl_sample`` is the port of ``reparam_loss_pallas`` with
   ``eps=None`` (``ocm_tpu/ops/kernels.py:160-183``): the same function
   with the noise drawn in the kernel, Philox4x32-10 bits through the TPU
@@ -26,6 +27,11 @@
   plain twin (``philox4x32_plain``, ``philox_normal_plain``) reproduces the
   kernel's bits in torch integer ops, so the twin is the same function,
   not only the same distribution.
+- K4, K6's backward and K5 run one row a group of lanes by
+  ``reparam_plan``, each launched as a programmatic dependent of the
+  kernel before it (``csrc/common.cuh`` ``launch_dependent``); ``noop``
+  launches the empty kernel whose device time is the card's launch floor,
+  the yardstick of these launch-bound kernels.
 
 Each CUDA source says what bounds its kernel on the card and how the
 design answers that.  On a CPU tensor a wrapper computes its plain twin
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import functools
 import math
+import operator
 from typing import NamedTuple
 
 import torch
@@ -143,6 +150,23 @@ def check_cuda_tensors(what, tensors, dtype=torch.float32):
 def stream_of(x) -> int:
     """The current CUDA stream of ``x``'s device, as a pointer."""
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def noop(device):
+    """One launch of the library's empty kernel (``ocm_noop``, one block of
+    32 threads) on ``device``'s current stream: its device time is the
+    card's launch floor.  ``launches`` counts it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"noop launches on a CUDA device, not {device}")
+    with torch.cuda.device(device):
+        err = _build.library().ocm_noop(
+            torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "noop")
+    noop.launches += 1
+
+
+noop.launches = 0
 
 
 def t2q_scores_multiclass_plain(x, means, components, invcovs):
@@ -307,6 +331,69 @@ def int8_gemm_s32(xq, w, tile=None):
 int8_gemm_s32.launches = 0
 
 
+# K4, K6's backward and K5: threads a block (csrc/common.cuh kRowThreads)
+REPARAM_THREADS = 256
+
+
+class ReparamPlan(NamedTuple):
+    """How K4, K6's backward and K5 run a call of N rows of k: ``lanes``
+    lanes a row (a power of two <= 32, so a warp holds 32 // lanes rows),
+    ``rows`` rows a block of 256 threads, ``blocks`` blocks, and ``vec``
+    bytes a lane moves a tensor at a time (16, 8 or 4)."""
+    lanes: int
+    rows: int
+    blocks: int
+    vec: int
+
+
+@functools.lru_cache(maxsize=256)
+def reparam_plan(n: int, k: int, align: int = 16,
+                 sampled: bool = False) -> ReparamPlan:
+    """The row-group launch of (n, k) f32 rows whose tensors' bases (and
+    row strides, in bytes) are all ``align``-byte aligned (16, 8 or 4).
+
+    K4 and K6's backward (``sampled`` False): 16-byte vectors where k % 4
+    == 0 and ``align`` is 16, 8-byte where k is even and ``align`` >= 8,
+    else scalars; a row's lanes step over its k / (vec / 4) vectors.  K5
+    (``sampled``): a lane step is an element pair, drawn by one Philox
+    call, and a row touches (k + 1) // 2 of them (at odd k its first or
+    last pair straddles into the next row); 8-byte accesses where k is
+    even and ``align`` >= 8, else scalars.  Lanes: the smallest power of
+    two >= the steps, at most 32; each lane takes steps lane, lane +
+    lanes, ...  The C entry points recompute the plan from their own
+    pointers and refuse one that differs.  Cached: a pure function of its
+    arguments, called at every launch."""
+    if min(n, k) < 1:
+        raise ValueError(f"reparam_plan: empty shape n={n} k={k}")
+    if sampled:
+        vec = 8 if k % 2 == 0 and align >= 8 else 4
+        steps = (k + 1) // 2
+    else:
+        vec = (16 if k % 4 == 0 and align >= 16
+               else 8 if k % 2 == 0 and align >= 8 else 4)
+        steps = k // (vec // 4)
+    lanes = min(32, 1 << (steps - 1).bit_length())
+    rows = REPARAM_THREADS // lanes
+    return ReparamPlan(lanes, rows, -(-n // rows), vec)
+
+
+def _alignment(*addresses: int) -> int:
+    """16, 8 or 4: the largest of them that divides every address."""
+    bits = functools.reduce(operator.or_, addresses)
+    return 16 if bits % 16 == 0 else 8 if bits % 8 == 0 else 4
+
+
+def _check_latent(what, mu, others):
+    """``mu`` and ``others`` ({name: tensor}) are (N, k) f32 CUDA tensors,
+    contiguous, on one device."""
+    check_cuda_tensors(what, {"mu": (mu, 2),
+                              **{k: (v, 2) for k, v in others.items()}})
+    for name, a in others.items():
+        if a.shape != mu.shape:
+            raise ValueError(f"shape mismatch: mu {tuple(mu.shape)}, {name} "
+                             f"{tuple(a.shape)}")
+
+
 def reparam_kl_plain(mu, logvar, eps):
     """``z = mu + eps * exp(logvar / 2)`` and the per-sample
     ``kl = -1/2 * sum_j (1 + lv - mu^2 - e^lv)``, in plain PyTorch."""
@@ -320,24 +407,23 @@ def reparam_kl(mu, logvar, eps):
     the given noise ``eps``; returns z (N, k) and kl (N,).
 
     CPU tensors: the plain twin.  CUDA tensors (float32, contiguous): the
-    hand-written kernel on the current stream.
+    hand-written kernel K4 on the current stream, one launch by
+    ``reparam_plan``.
     """
     if mu.device.type == "cpu":
         return reparam_kl_plain(mu, logvar, eps)
-    check_cuda_tensors("reparam_kl", {"mu": (mu, 2), "logvar": (logvar, 2),
-                                      "eps": (eps, 2)})
-    if logvar.shape != mu.shape or eps.shape != mu.shape:
-        raise ValueError(f"shape mismatch: mu {tuple(mu.shape)}, logvar "
-                         f"{tuple(logvar.shape)}, eps {tuple(eps.shape)}")
+    _check_latent("reparam_kl", mu, {"logvar": logvar, "eps": eps})
     n, k = mu.shape
     z = torch.empty_like(mu)
     kl = torch.empty((n,), dtype=torch.float32, device=mu.device)
     if n == 0 or k == 0:
         return z, kl.zero_()
+    plan = reparam_plan(n, k, _alignment(mu.data_ptr(), logvar.data_ptr(),
+                                         eps.data_ptr(), z.data_ptr()))
     with torch.cuda.device(mu.device):
         err = _build.library().reparam_kl_f32(
             mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(), z.data_ptr(),
-            kl.data_ptr(), n, k, stream_of(mu))
+            kl.data_ptr(), n, k, *plan, stream_of(mu))
     _build.check(err, "reparam_kl")
     reparam_kl.launches += 1
     return z, kl
@@ -346,11 +432,66 @@ def reparam_kl(mu, logvar, eps):
 reparam_kl.launches = 0
 
 
+def reparam_kl_bwd_plain(mu, logvar, eps, dz, dkl):
+    """The VJP of ``reparam_kl`` (``ocm_tpu/ops/kernels.py:212-218``), in
+    plain PyTorch: dmu = dz + dkl * mu, dlv = dz * eps * e^(lv/2) / 2 -
+    dkl * (1 - e^lv) / 2, for dz (N, k) and dkl (N,)."""
+    dkl = dkl[:, None]
+    dmu = dz + dkl * mu
+    dlv = (dz * 0.5 * eps * torch.exp(0.5 * logvar)
+           - dkl * 0.5 * (1.0 - torch.exp(logvar)))
+    return dmu, dlv
+
+
+def reparam_kl_bwd(mu, logvar, eps, dz, dkl):
+    """K6's backward: (dmu, dlv) of ``reparam_kl`` at (mu, logvar, eps) for
+    the gradients dz (N, k) of z and dkl (N,) of the per-sample KL.
+
+    CPU tensors: the plain twin.  CUDA tensors (float32; mu, logvar, eps
+    contiguous; dz and dkl with any non-negative strides, so the stride-0
+    expand that ``kl.mean()``'s gradient arrives as is read in place): the
+    hand-written kernel on the current stream, one launch by
+    ``reparam_plan``; ``launches`` counts it.
+    """
+    if mu.device.type == "cpu":
+        return reparam_kl_bwd_plain(mu, logvar, eps, dz, dkl)
+    _check_latent("reparam_kl_bwd", mu, {"logvar": logvar, "eps": eps})
+    n, k = mu.shape
+    for name, a, shape in (("dz", dz, (n, k)), ("dkl", dkl, (n,))):
+        if a.device != mu.device or a.dtype != torch.float32:
+            raise TypeError(f"reparam_kl_bwd: {name} must be float32 on "
+                            f"{mu.device}, got {a.dtype} on {a.device}")
+        if tuple(a.shape) != shape or min(a.stride(), default=0) < 0:
+            raise ValueError(f"reparam_kl_bwd: {name} must be {shape} with "
+                             f"non-negative strides, got {tuple(a.shape)} "
+                             f"strides {a.stride()}")
+    dmu, dlv = torch.empty_like(mu), torch.empty_like(mu)
+    if n == 0 or k == 0:
+        return dmu, dlv
+    rs, cs = dz.stride()
+    if max(rs, cs, dkl.stride(0)) * max(n, k) > _INT_MAX:
+        raise ValueError("reparam_kl_bwd: dz or dkl exceeds int32 indexing")
+    align = 4 if cs != 1 else _alignment(
+        mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(), dz.data_ptr(),
+        dmu.data_ptr(), dlv.data_ptr(), 4 * rs)
+    plan = reparam_plan(n, k, align)
+    with torch.cuda.device(mu.device):
+        err = _build.library().reparam_kl_bwd_f32(
+            mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(), dz.data_ptr(),
+            dkl.data_ptr(), dmu.data_ptr(), dlv.data_ptr(), n, k, rs, cs,
+            dkl.stride(0), *plan, stream_of(mu))
+    _build.check(err, "reparam_kl_bwd")
+    reparam_kl_bwd.launches += 1
+    return dmu, dlv
+
+
+reparam_kl_bwd.launches = 0
+
+
 class _FusedReparamKL(torch.autograd.Function):
-    """Forward: ``reparam_kl``.  Backward (``ocm_tpu/ops/kernels.py:212-218``),
-    elementwise torch as in JAX, where it is jnp outside the kernel:
-    dmu = dz + dkl * mu, dlv = dz * eps * e^(lv/2) / 2 - dkl * (1 - e^lv) / 2;
-    eps gets no gradient."""
+    """Forward: ``reparam_kl`` (K4).  Backward: ``reparam_kl_bwd``
+    (``ocm_tpu/ops/kernels.py:212-218``), one kernel on the card where
+    JAX fuses the VJP into one XLA pass; eps gets no gradient."""
 
     @staticmethod
     def forward(ctx, mu, logvar, eps):
@@ -360,11 +501,7 @@ class _FusedReparamKL(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dz, dkl):
-        mu, logvar, eps = ctx.saved_tensors
-        dkl = dkl[:, None]
-        dmu = dz + dkl * mu
-        dlv = (dz * 0.5 * eps * torch.exp(0.5 * logvar)
-               - dkl * 0.5 * (1.0 - torch.exp(logvar)))
+        dmu, dlv = reparam_kl_bwd(*ctx.saved_tensors, dz, dkl)
         return dmu, dlv, None
 
 
@@ -448,7 +585,8 @@ def reparam_kl_sample(mu, logvar, seed: int, offset: int = 0,
     the noise.
 
     CPU tensors: the plain twin.  CUDA tensors (float32, contiguous): the
-    hand-written kernel K5 on the current stream.  Inference only: the TPU
+    hand-written kernel K5 on the current stream, one launch by
+    ``reparam_plan(sampled=True)``.  Inference only: the TPU
     kernel's ``eps=None`` branch has no VJP, so this raises when grad is
     enabled and an input requires it.
     """
@@ -461,21 +599,22 @@ def reparam_kl_sample(mu, logvar, seed: int, offset: int = 0,
     if mu.device.type == "cpu":
         z, kl, eps = reparam_kl_sample_plain(mu, logvar, seed, offset)
         return (z, kl, eps) if return_eps else (z, kl)
-    check_cuda_tensors("reparam_kl_sample",
-                       {"mu": (mu, 2), "logvar": (logvar, 2)})
-    if logvar.shape != mu.shape:
-        raise ValueError(f"shape mismatch: mu {tuple(mu.shape)}, logvar "
-                         f"{tuple(logvar.shape)}")
+    _check_latent("reparam_kl_sample", mu, {"logvar": logvar})
     n, k = mu.shape
     z = torch.empty_like(mu)
-    kl = torch.zeros((n,), dtype=torch.float32, device=mu.device)
+    kl = torch.empty((n,), dtype=torch.float32, device=mu.device)
     eps = torch.empty_like(mu) if return_eps else None
+    if n and not k:
+        kl.zero_()
     if n and k:
+        plan = reparam_plan(n, k, _alignment(
+            mu.data_ptr(), logvar.data_ptr(), z.data_ptr(),
+            0 if eps is None else eps.data_ptr()), sampled=True)
         with torch.cuda.device(mu.device):
             err = _build.library().reparam_kl_sample_f32(
                 mu.data_ptr(), logvar.data_ptr(), z.data_ptr(), kl.data_ptr(),
                 None if eps is None else eps.data_ptr(), n, k, seed, offset,
-                stream_of(mu))
+                *plan, stream_of(mu))
         _build.check(err, "reparam_kl_sample")
         reparam_kl_sample.launches += 1
     return (z, kl, eps) if return_eps else (z, kl)

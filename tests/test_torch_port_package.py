@@ -109,6 +109,18 @@ def test_cpu_vae_wrappers_do_not_count_launches():
     assert out.shape == x.shape and mean.shape == var.shape == (3,)
 
 
+def test_cpu_fused_reparam_kl_counts_no_launch():
+    gen = torch.Generator().manual_seed(0)
+    mu, lv, eps = torch.randn(3, 6, 4, generator=gen)
+    m, v = mu.clone().requires_grad_(), lv.clone().requires_grad_()
+    before = (kernels.reparam_kl.launches, kernels.reparam_kl_bwd.launches)
+    z, kl = kernels.fused_reparam_kl(m, v, eps)
+    (z.sum() + kl.mean()).backward()
+    assert (kernels.reparam_kl.launches,
+            kernels.reparam_kl_bwd.launches) == before
+    assert m.grad.shape == v.grad.shape == (6, 4)
+
+
 def test_cpu_sample_wrapper_counts_no_launch_and_refuses_grad():
     gen = torch.Generator().manual_seed(0)
     mu, lv = torch.randn(2, 6, 3, generator=gen)
@@ -162,6 +174,10 @@ def test_non_cpu_non_cuda_tensor_raises():
         kernels.reparam_kl(x, x, x)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.reparam_kl_sample(x, x, 0)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernels.reparam_kl_bwd(x, x, x, x, x[:, 0])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.noop("meta")
     x3, c = torch.zeros(2, 4, 8, device="meta"), torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         bn.bn_act_fwd(x3, c, c)
@@ -438,9 +454,14 @@ def test_bn_kernels_at_every_cluster_size(cuda, shape, cluster):
                                    msg=what)
 
 
+# (N, k): the train batch (one block, float4 lanes), odd k, one element,
+# k above 32 (one lane two vectors), ragged k, a long batch, k past 128
+REPARAM_CASES = [(64, 16), (300, 5), (7, 40), (1, 1), (7, 33), (1000, 64),
+                 (3, 129)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 16), (300, 5), (7, 40), (1, 1)],
-                         ids=str)
+@pytest.mark.parametrize("shape", REPARAM_CASES, ids=str)
 def test_reparam_kernel_matches_plain_twin(cuda, shape):
     gen = torch.Generator().manual_seed(1)
     mu, lv, eps = (torch.randn(3, *shape, generator=gen) * 0.8).to(cuda)
@@ -451,6 +472,116 @@ def test_reparam_kernel_matches_plain_twin(cuda, shape):
     z_p, kl_p = kernels.reparam_kl_plain(mu, lv, eps)
     torch.testing.assert_close(z, z_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(kl, kl_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [1, 2], ids=["4B", "8B"])
+@pytest.mark.parametrize("shape", [(64, 16), (1000, 64)], ids=str)
+def test_reparam_kernel_unaligned_matches_plain_twin(cuda, shape, shift):
+    """mu's base 4 or 8 bytes past 16-byte alignment: the plan falls back
+    to 8-byte or scalar accesses."""
+    gen = torch.Generator().manual_seed(4)
+    n, k = shape
+    mu = (torch.randn(n * k + shift, generator=gen) * 0.8).to(cuda)[shift:]
+    mu = mu.view(n, k)
+    lv, eps = (torch.randn(2, n, k, generator=gen) * 0.8).to(cuda)
+    z, kl = kernels.reparam_kl(mu, lv, eps)
+    torch.cuda.synchronize()
+    z_p, kl_p = kernels.reparam_kl_plain(mu, lv, eps)
+    torch.testing.assert_close(z, z_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(kl, kl_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dz_kind", ["contiguous", "transposed", "offset",
+                                     "unused"])
+@pytest.mark.parametrize("shape", [(64, 16), (300, 5), (7, 33), (3, 129)],
+                         ids=str)
+def test_reparam_bwd_kernel_matches_plain_twin(cuda, shape, dz_kind):
+    """K6's backward kernel against its twin, with dkl the stride-0 expand
+    of kl.mean()'s gradient, and dz contiguous, non-contiguous, off
+    alignment, or the zeros autograd makes when z goes unused; one launch
+    a call, within 1e-5 of scale (elementwise f32 exp)."""
+    gen = torch.Generator().manual_seed(3)
+    n, k = shape
+    mu, lv, eps, dz = (torch.randn(4, n, k, generator=gen) * 0.8).to(cuda)
+    if dz_kind == "transposed":
+        dz = dz.T.contiguous().T
+    elif dz_kind == "offset":
+        dz = torch.randn(n * k + 1, generator=gen).to(cuda)[1:].view(n, k)
+    m, v = mu.clone().requires_grad_(), lv.clone().requires_grad_()
+    before = kernels.reparam_kl_bwd.launches
+    z, kl = kernels.fused_reparam_kl(m, v, eps)
+    if dz_kind == "unused":
+        kl.mean().backward()
+        dz = torch.zeros_like(mu)
+    else:
+        torch.autograd.backward((z, kl.mean()), (dz, None))
+    torch.cuda.synchronize()
+    assert kernels.reparam_kl_bwd.launches == before + 1
+    dkl = torch.full((), 1.0 / n, device=cuda).expand(n)
+    ref = kernels.reparam_kl_bwd_plain(mu, lv, eps, dz, dkl)
+    direct = kernels.reparam_kl_bwd(mu, lv, eps, dz, dkl)
+    torch.cuda.synchronize()
+    for got in ((m.grad, v.grad), direct):
+        for a, r in zip(got, ref):
+            torch.testing.assert_close(a, r, rtol=1e-5,
+                                       atol=1e-5 * r.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_reparam_kernels_after_a_linear_match_plain_twins(cuda):
+    """K4, K6's backward and K5 are programmatic dependents of the kernel
+    before them: launched straight after the Linear that writes their
+    input, each must read its output, not the buffer's earlier contents
+    (every rep writes new values into the recycled block)."""
+    gen = torch.Generator().manual_seed(8)
+    fc = torch.nn.Linear(256, 16).to(cuda).requires_grad_(False)
+    mu, lv, eps = (torch.randn(3, 64, 16, generator=gen) * 0.8).to(cuda)
+    dkl = torch.full((), 1.0 / 64, device=cuda).expand(64)
+    hs = [torch.randn(64, 256, generator=gen).to(cuda) for _ in range(10)]
+    got = [(kernels.reparam_kl(mu, fc(h), eps),
+            kernels.reparam_kl_bwd(mu, lv, eps, fc(h), dkl),
+            kernels.reparam_kl_sample(mu, fc(h), i))
+           for i, h in enumerate(hs)]
+    torch.cuda.synchronize()
+    for i, (h, (k4, k6, k5)) in enumerate(zip(hs, got)):
+        out = fc(h)
+        for res, ref in ((k4, kernels.reparam_kl_plain(mu, out, eps)),
+                         (k6, kernels.reparam_kl_bwd_plain(mu, lv, eps, out,
+                                                           dkl)),
+                         (k5, kernels.reparam_kl_sample_plain(mu, out, i))):
+            for a, r in zip(res, ref):
+                torch.testing.assert_close(a, r, rtol=1e-5,
+                                           atol=1e-5 * r.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_reparam_entry_points_refuse_a_wrong_plan(cuda):
+    mu = torch.zeros(64, 16, device=cuda)
+    z, kl = torch.empty_like(mu), torch.empty(64, device=cuda)
+    plan = kernels.reparam_plan(64, 16)
+    lib = _build.library()
+    stream = kernels.stream_of(mu)
+    ptrs = (mu.data_ptr(),) * 3 + (z.data_ptr(), kl.data_ptr())
+    assert lib.reparam_kl_f32(*ptrs, 64, 16, *plan, stream) == 0
+    for bad in (plan._replace(lanes=8), plan._replace(blocks=2),
+                plan._replace(vec=4)):
+        assert lib.reparam_kl_f32(*ptrs, 64, 16, *bad, stream) != 0
+    sampled = kernels.reparam_plan(64, 16, sampled=True)
+    args = (mu.data_ptr(), mu.data_ptr(), z.data_ptr(), kl.data_ptr(), None,
+            64, 16, 1, 0)
+    assert lib.reparam_kl_sample_f32(*args, *sampled, stream) == 0
+    assert lib.reparam_kl_sample_f32(*args, *plan, stream) != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_noop_counts_its_launches(cuda):
+    before = kernels.noop.launches
+    kernels.noop(cuda)
+    torch.cuda.synchronize()
+    assert kernels.noop.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -465,9 +596,11 @@ def test_vae_kernels_reject_float64(cuda):
         kernels.reparam_kl_sample(x[0], x[0], 0)
 
 
-# (N, k): the calibration's latent shape, ragged rows with k odd (element
-# pairs straddle rows), k above 32, one element
-SAMPLE_CASES = [(512, 16), (300, 5), (7, 40), (1, 1)]
+# (N, k): the calibration's and the sampled entry forward's latent shapes,
+# the screen chunk's, ragged rows with k odd (element pairs straddle rows),
+# odd k above 32 and past 128, k above 32, one element
+SAMPLE_CASES = [(512, 16), (64, 16), (65536, 16), (300, 5), (7, 33),
+                (3, 129), (7, 40), (1, 1)]
 
 
 @pytest.mark.cuda
@@ -482,9 +615,10 @@ def test_reparam_sample_kernel_matches_plain_twin(cuda, shape):
     torch.cuda.synchronize()
     assert kernels.reparam_kl_sample.launches == before + 1
     z_p, kl_p, eps_p = kernels.reparam_kl_sample_plain(mu, lv, seed, offset)
-    # the same bits on both sides; f32 log/cos/exp of the device library
-    # against torch's differ by a few ulp
-    torch.testing.assert_close(eps, eps_p, rtol=1e-6, atol=1e-6)
+    # the same bits through the same f32 log, cos and sqrt: the noise is
+    # equal bit for bit; z and the KL within 1e-5 (exp, a fused
+    # multiply-add, the row sum's order)
+    assert torch.equal(eps, eps_p)
     torch.testing.assert_close(z, z_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(kl, kl_p, rtol=1e-5, atol=1e-5)
     z2, kl2 = kernels.reparam_kl_sample(mu, lv, seed, offset)
@@ -494,6 +628,23 @@ def test_reparam_sample_kernel_matches_plain_twin(cuda, shape):
                                                          offset)[0], z)
         assert not torch.equal(kernels.reparam_kl_sample(mu, lv, seed,
                                                          offset + 1)[0], z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 16), (7, 33)], ids=str)
+def test_reparam_sample_kernel_unaligned_matches_plain_twin(cuda, shape):
+    """mu 4 bytes off 8-byte alignment: scalar accesses, the same noise."""
+    gen = torch.Generator().manual_seed(6)
+    n, k = shape
+    mu = (torch.randn(n * k + 1, generator=gen) * 0.8).to(cuda)[1:]
+    mu = mu.view(n, k)
+    lv = (torch.randn(n, k, generator=gen) * 0.8).to(cuda)
+    z, kl, eps = kernels.reparam_kl_sample(mu, lv, 11, 2, return_eps=True)
+    torch.cuda.synchronize()
+    z_p, kl_p, eps_p = kernels.reparam_kl_sample_plain(mu, lv, 11, 2)
+    assert torch.equal(eps, eps_p)
+    torch.testing.assert_close(z, z_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(kl, kl_p, rtol=1e-5, atol=1e-5)
 
 
 # (N, L, tile): the probe's --small shape, a headline tile cut in N, a
