@@ -7,7 +7,7 @@
 a copy of the script placed in an unpacked older tree times that tree's,
 so two versions are compared in turns within one chip call.
 
-Drives the port's four paths at full width and holds every hand-written
+Drives the port's five paths at full width and holds every hand-written
 CUDA kernel against its plain PyTorch twin:
 
 - SIMCA (first slice): a batched 3-class fit (3 x 700 x 500, k = 10,
@@ -30,7 +30,15 @@ CUDA kernel against its plain PyTorch twin:
   instantiation, int8 residuals through the exact int8 product K8, raw
   uint16 counts preprocessed on the card), the streaming moments fit, the
   bf16 ``VAEScorer`` twin, and the int8 probe (K7 and K8 at its headline
-  shapes).
+  shapes);
+- CV-SIMCA and the masked fits (eighth slice): ``bench_all.py``'s CV
+  workload (600 target and 300 other spectra x 500 channels, LVs 2-12, 5
+  folds) swept with the randomized and the dense solver (covariance and
+  Gram sides), every class at once, and through the grid search of
+  ``examples/cv_simca.py`` whose refit predicts through K1;
+  ``fit_classes`` of classes of 700, 520 and 340 spectra (the masked
+  fit) and the ``SIMCA`` estimator scoring 98,304 spectra through K1; the
+  four model files saved and loaded on the card.
 
 Phases, each of which exits non-zero on failure:
 
@@ -91,7 +99,19 @@ Phases, each of which exits non-zero on failure:
 15. the card's f32 and int8 screens against the port's CPU f64;
 16. serving timings: each mode's screen, its host prep + H2D against its
    device decision + fetch, the streaming ingest and fit, and K7, K8 and
-   bf16 K1 beside their bounds, twins and library calls.
+   bf16 K1 beside their bounds, twins and library calls;
+17. the CV slice as a user calls it (numpy in): the three sweeps, the
+   multi-class sweep, the grid (its best estimator's predict: exactly 1
+   K1 launch), the unequal-class fits (rsvd and eigh, each then 1 K1
+   launch for 98,304 spectra) and ``SIMCA`` (1 K1 launch at one k, 3 at
+   k 8, 10, 12); every limit finite and positive; the masked fit of three
+   equal classes against ``fit_simca``; masked rsvd against eigh accepts
+   and the cov side against the Gram side predictions (99.9 %); the
+   card's f32 sweep cells against the port's CPU f64 (limits 1e-3, spec
+   and sens within 2 samples, predictions 99.9 %); the four model kinds
+   saved and reloaded on the card (scores bit-equal, a statistic refits
+   to equal limits); the sweeps', grid's and masked fits' times with
+   each sweep's split between decomposition, limit engines and the rest.
 
 Prints a JSON line with every kernel's record, the card's ``nvidia-smi``
 name and power limit, and as its last line
@@ -112,6 +132,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -119,13 +140,15 @@ import torch
 import torch.nn.functional as F
 
 from ocm_tpu_torch.models import bundle as vae_bundle
-from ocm_tpu_torch.models import streaming
+from ocm_tpu_torch.models import cv, streaming
 from ocm_tpu_torch.models import trainer as vae_trainer
 from ocm_tpu_torch.models import vae_decision, vaesimca
-from ocm_tpu_torch.models.simca import (SIMCAModel, fit_classes, fit_simca,
-                                        predict_classes)
+from ocm_tpu_torch.models.simca import (SIMCA, SIMCAModel, fit_classes,
+                                        fit_simca, fit_simca_masked,
+                                        load_simca_model, predict_classes,
+                                        save_simca_model, stack_models)
 from ocm_tpu_torch.models.vae import BatchNormAct, ConvVAE1D, beta_vae_loss
-from ocm_tpu_torch.ops import _build, bn, kernels
+from ocm_tpu_torch.ops import _build, bn, kernels, linalg
 from ocm_tpu_torch.ops.linalg import default_omega
 from ocm_tpu_torch.ops.preprocess import snv_savgol
 from ocm_tpu_torch.probes import int8 as int8_probe
@@ -280,8 +303,10 @@ def k1_work(n, length, c, k, x_bytes):
     return nbytes, n * c * (length * (2 * k + 3) + 2 * k * k + 4 * k + 1)
 
 
-def compare_kernel(label, x, models, decision_type="alt"):
-    """Kernel vs plain twin on the card; returns the max absolute error."""
+def compare_kernel(label, x, models, decision_type="alt", path_accept=None):
+    """Kernel vs plain twin on the card; returns the max absolute error.
+    ``path_accept`` (C, N) bool, the decisions a path made on the same x
+    and models, is held against the plain twin's decisions too."""
     args = [a.contiguous() for a in (x, models.mean, models.components,
                                      models.invcovT)]
     t2, q = kernels.t2q_scores_multiclass(*args)
@@ -312,6 +337,15 @@ def compare_kernel(label, x, models, decision_type="alt"):
         line.update(accept_agreement=agree, accept_rate=(dred < d_lim).float().mean().item())
         check(agree >= 0.9999, f"{label}: accept agreement {agree} < 0.9999")
         check(bool(near.all()), f"{label}: a disagreement lies off the boundary")
+        if path_accept is not None:
+            off = path_accept != (dred_p < d_lim)
+            path_agree = 1.0 - off.float().mean().item()
+            line.update(path_accept_agreement=path_agree)
+            check(path_agree >= 0.9999,
+                  f"{label}: path vs plain accept agreement {path_agree}")
+            check(bool((((dred_p - d_lim).abs() <= 1e-4 * d_lim.abs())
+                        | ~off).all()),
+                  f"{label}: a path decision differs off the boundary")
     print(json.dumps(line), flush=True)
     return err
 
@@ -1797,6 +1831,337 @@ def kernel_times(dev, card, name):
                       "reparam": reparam_t, "k5": k5_t}), flush=True)
 
 
+# --- the CV slice ------------------------------------------------------------
+
+# bench_all.py:71-79's CV workload: 600 target (class 0) and 300 other
+# spectra of 500 channels, LVs 2-12, 5 folds
+CV_N0, CV_N1, CV_LVS, CV_FOLDS = 600, 300, list(range(2, 13)), 5
+# the unequal-class fits: make_data(seed=0)'s classes cut to these counts
+UNEQUAL = (700, 520, 340)
+
+
+def cv_data():
+    """``bench_all.py:bench_cvsimca``'s spectra and labels (f32)."""
+    rng = np.random.default_rng(1)
+    t = np.linspace(0, 1, LENGTH)
+    x0 = rng.normal(1, .08, (CV_N0, 1)) * np.sin(2 * np.pi * 3 * t) + \
+        rng.normal(0, .02, (CV_N0, LENGTH))
+    x1 = rng.normal(1, .08, (CV_N1, 1)) * np.sin(2 * np.pi * 4 * t) + \
+        rng.normal(0, .02, (CV_N1, LENGTH))
+    return (np.concatenate([x0, x1]).astype(np.float32),
+            np.concatenate([np.zeros(CV_N0), np.ones(CV_N1)]))
+
+
+def clocked_call(run):
+    """One call of ``run`` on the host clock, synchronized at both ends:
+    ``out``, ``ms``, the K1 ``launches`` it made (the count set to 0 just
+    before, read just after), the ms spent in the batched decomposition
+    (``fold_decomposition``) and the limit engines (``lv_limits``), each
+    bracketed by a synchronize, and the last ``sweep`` (LVSweep, pooled)
+    that ``cv._sweep`` returned and the last default test matrix
+    (``omega``) drawn, None where the call made none."""
+    parts = {"fold_decomposition": 0.0, "lv_limits": 0.0}
+    seen = {"sweep": None, "omega": None}
+    real = {name: getattr(cv, name) for name in (*parts, "_sweep")}
+    real_omega = linalg.default_omega
+
+    def clocked(name):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[name] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def recorded(key, fn):
+        def wrapper(*args, **kwargs):
+            seen[key] = fn(*args, **kwargs)
+            return seen[key]
+        return wrapper
+
+    try:
+        for name in parts:
+            setattr(cv, name, clocked(name))
+        cv._sweep = recorded("sweep", real["_sweep"])
+        linalg.default_omega = recorded("omega", real_omega)
+        torch.cuda.synchronize()
+        kernels.t2q_scores_multiclass.launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = kernels.t2q_scores_multiclass.launches
+    finally:
+        for name, fn in real.items():
+            setattr(cv, name, fn)
+        linalg.default_omega = real_omega
+    return {"out": out, "ms": ms, "launches": launches, "parts": parts,
+            **seen}
+
+
+def cv_vs_cpu_f64(x32, y, solver, call, sweep_kw):
+    """The card's f32 sweep, as ``call`` (``clocked_call`` of the path's
+    ``cv_simca_sweep``) caught it, against the port's CPU f64 sweep of the
+    same data and arguments, rsvd with the card call's own test matrix:
+    per-cell limits to 1e-3, per-LV spec and sens within 2 samples' share
+    of their denominators, pooled predictions >= 99.9 % equal.  The caught
+    pooled results must be those the call returned."""
+    card, card_pool = call["sweep"]
+    for key in ("pred", "spec", "sens"):
+        check(np.array_equal(card_pool[key][0].cpu().numpy(),
+                             call["out"][key]),
+              f"cv {solver}: the caught sweep's {key} is not the returned one")
+    check((call["omega"] is None) == (solver != "rsvd"),
+          f"cv {solver}: test matrix drawn: {call['omega'] is not None}")
+    omega = None if call["omega"] is None else call["omega"].double().cpu()
+    cpu, cpu_pool = clocked_call(lambda: cv.cv_simca_sweep(
+        x32.astype(np.float64), y, 0, CV_LVS, device="cpu", omega=omega,
+        **sweep_kw))["sweep"]
+    rel = {}
+    for key, a, b in (("t2_limit", card.t2_res.limit, cpu.t2_res.limit),
+                      ("q_limit", card.q_res.limit, cpu.q_res.limit),
+                      ("d_limit", card.d_limit, cpu.d_limit)):
+        check_limits(f"cv {solver} sweep", {key: a})
+        rel[key] = ((a.double().cpu() - b).abs() / b.abs()).max().item()
+    diff = {k: (card_pool[k].double().cpu() - cpu_pool[k]).abs().max().item()
+            for k in ("spec", "sens")}
+    agree = (card_pool["pred"].cpu() == cpu_pool["pred"]).float().mean().item()
+    line = {"phase": "cv_vs_cpu_f64", "solver": solver,
+            "cell_limit_rel_err": rel, "max_abs_diff_pct": diff,
+            "pred_agreement": agree}
+    print(json.dumps(line), flush=True)
+    for key, e in rel.items():
+        check(e <= 1e-3, f"cv {solver}: {key} differs from CPU f64 by {e}")
+    # one fold's spec moves 100/300 a sample; the pooled sens 100/600
+    for key, denom in (("spec", CV_N1), ("sens", CV_N0)):
+        check(diff[key] <= 2 * 100.0 / denom,
+              f"cv {solver}: {key} differs from CPU f64 by {diff[key]}")
+    check(agree >= 0.999, f"cv {solver}: pred agreement {agree} < 0.999")
+
+
+def estimator_kernels(label, est, x, predictions):
+    """K1 against its plain twin on the models ``est.predict`` scored (the
+    stacked models at one k, else each class's), and the predictions it
+    returned for x against the plain twin's decisions."""
+    models = [est._dd_limits(est._model[c]) for c in est.model_class]
+    accept = torch.as_tensor(predictions.T > 0.5, device=x.device)
+    ks = est._n_components_per_class
+    if len(models) > 1 and len(set(ks)) == 1:
+        compare_kernel(f"{label} C={len(models)} k={ks[0]}", x,
+                       stack_models(models), est.type, accept)
+        return
+    for i, m in enumerate(models):
+        compare_kernel(f"{label} class {est.model_class[i]} k={ks[i]}", x,
+                       stack_models([m]), est.type, accept[i:i + 1])
+
+
+def persistence_round_trip(dev, simca_models, decisions, x):
+    """Each of the four model kinds saved to a temporary directory and
+    loaded back onto the card: a reloaded SIMCAModel scores bit-equal, a
+    reloaded SpectraMoments refits to equal limits, a reloaded bundle and
+    VAE-SIMCA state hold bit-equal leaves."""
+    model, bundle, vs, _, _ = decisions
+    moms = streaming.moments_update_classes(
+        streaming.moments_init_classes(3, LENGTH, device=dev),
+        x[:3 * 300], np.repeat([0, 1, 2], 300), [0, 1, 2])
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.msgpack")
+                 for k in ("simca", "moments", "bundle", "vaesimca")}
+        save_simca_model(paths["simca"], simca_models)
+        streaming.save_moments(paths["moments"], moms)
+        vae_bundle.save_bundle(paths["bundle"], bundle, model)
+        vaesimca.save_vaesimca_model(paths["vaesimca"], vs)
+        sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+        simca_back = load_simca_model(paths["simca"], device=dev)
+        moms_back = streaming.load_moments(paths["moments"], device=dev)
+        bundle_back = vae_bundle.load_bundle(paths["bundle"], model,
+                                             device=dev)
+        vs_back = vaesimca.load_vaesimca_model(paths["vaesimca"], device=dev)
+    scores = [predict_classes(m, x[:SRV_CHUNK])
+              for m in (simca_models, simca_back)]
+    scores_equal = all(torch.equal(a, b) for a, b in zip(*scores))
+    fits = [streaming.fit_classes_moments(m, K, solver="eigh")
+            for m in (moms, moms_back)]
+    refit_equal = all(torch.equal(a, b) for a, b in zip(
+        (fits[0].t2_res.limit, fits[0].q_res.limit, fits[0].d_limit),
+        (fits[1].t2_res.limit, fits[1].q_res.limit, fits[1].d_limit)))
+    # every leaf the file holds: the reference's format has no BatchNorm
+    # counter (num_batches_tracked loads as 0; the eval forward reads none)
+    leaves = [(k, v) for k, v in bundle.state_dict.items()
+              if not k.endswith("num_batches_tracked")] + [
+        (f, getattr(bundle, f)) for f in bundle._fields[1:]]
+    bundle_equal = all(torch.equal(v, bundle_back.state_dict[k]
+                                   if k in bundle.state_dict
+                                   else getattr(bundle_back, k))
+                       for k, v in leaves)
+    vs_equal = all(torch.equal(getattr(vs, f), getattr(vs_back, f))
+                   for f in vs._fields)
+    line = {"phase": "persistence", "bytes": sizes,
+            "simca_scores_bit_equal": scores_equal,
+            "moments_refit_equal": refit_equal,
+            "bundle_leaves_equal": bundle_equal,
+            "vaesimca_leaves_equal": vs_equal,
+            "on_device": all(str(a.device).startswith("cuda") for a in (
+                simca_back.mean, moms_back.scatter, bundle_back.spec_mean,
+                vs_back.d_limit))}
+    print(json.dumps(line), flush=True)
+    for key, ok in line.items():
+        if key not in ("phase", "bytes"):
+            check(ok, f"persistence: {key} is false")
+
+
+def cv_phases(dev, card, decisions):
+    """Phase 17, the CV slice: CV-SIMCA and the masked fits at full width,
+    as a user calls them; returns the K1 launches they made."""
+    t_phase = time.perf_counter()
+    x32, y = cv_data()
+    x_dev = torch.as_tensor(x32, device=dev)
+    cals, xs = make_data()
+    x_u = np.concatenate([cals[c, :n] for c, n in enumerate(UNEQUAL)]
+                         ).astype(np.float32)
+    y_u = np.repeat(np.arange(N_CLASSES), UNEQUAL)
+    xs32 = torch.as_tensor(xs.astype(np.float32), device=dev)
+    sweep_kw = {"rsvd": dict(solver="rsvd"), "eigh": dict(side="cov"),
+                "gram": dict(side="gram")}
+    for kw in sweep_kw.values():
+        kw["n_splits"] = CV_FOLDS
+    runs = {
+        **{key: (lambda kw=kw: cv.cv_simca_sweep(x32, y, 0, CV_LVS, **kw))
+           for key, kw in sweep_kw.items()},
+        "multiclass": lambda: cv.cv_simca_sweep_multiclass(
+            x32, y, [0, 1], CV_LVS, n_splits=CV_FOLDS),
+        "grid": lambda: cv.cross_validate_simca_grid(
+            SIMCA(model_class=0, type="alt", t2lim="Fdist",
+                  qlim="jm", verbose=False, solver="rsvd"),
+            x32, y, cv.ClasswiseKFoldWithExternalVal(CV_FOLDS, cls_label=0),
+            LV_min=min(CV_LVS), LV_max=max(CV_LVS),
+            param_grid={"type": ["alt", "sim"]}, print_summary=False),
+        "masked_rsvd": lambda: fit_classes(x_u, y_u, [0, 1, 2], K,
+                                           solver="rsvd"),
+        "masked_eigh": lambda: fit_classes(x_u, y_u, [0, 1, 2], K,
+                                           solver="eigh"),
+    }
+    # the path, as a user calls it (numpy in), K1 counted call by call.
+    # The first call (the rsvd sweep) is the phase's warm-up: it runs every
+    # limit engine, which holds over 97 % of each call's time; every other
+    # path call is the first of its run's 3 timed calls
+    calls = {key: clocked_call(run) for key, run in runs.items()}
+    timed = {key: [] if key == "rsvd" else [call]
+             for key, call in calls.items()}
+    out = {key: call["out"] for key, call in calls.items()}
+    launches = {key: call["launches"] for key, call in calls.items()}
+    best = out["grid"]["best_estimator"]
+    call = clocked_call(lambda: best.predict(x32))
+    pred_best, launches["grid_best_predict"] = call["out"], call["launches"]
+    for key in ("masked_rsvd", "masked_eigh"):
+        call = clocked_call(lambda: predict_classes(out[key], xs32)[0])
+        out[f"{key}_accept"] = call["out"]
+        launches[f"{key}_predict"] = call["launches"]
+    ests = {}
+    for ncomp in (K, [8, 10, 12]):
+        ests[str(ncomp)] = est = SIMCA(n_components=ncomp,
+                                       model_class=[0, 1, 2],
+                                       verbose=False).fit(x_u, y_u)
+        call = clocked_call(lambda: est.predict(xs32))
+        out[f"simca_{ncomp}"] = call["out"]
+        launches[f"simca_predict_{ncomp}"] = call["launches"]
+    want = {key: 0 for key in runs}
+    want.update({"grid_best_predict": 1, "masked_rsvd_predict": 1,
+                 "masked_eigh_predict": 1, f"simca_predict_{K}": 1,
+                 "simca_predict_[8, 10, 12]": 3})
+    check(launches == want, f"phase 17 K1 launches {launches} != {want}")
+    # K1 against its plain twin at every plan and model set the path
+    # scored, and the path's decisions against the twin's
+    for key in ("masked_rsvd", "masked_eigh"):
+        compare_kernel(f"{key} N={N_SCORE} C=3 k={K}", xs32, out[key],
+                       path_accept=out[f"{key}_accept"])
+    for ncomp, est in ests.items():
+        estimator_kernels(f"SIMCA({ncomp}) N={N_SCORE}", est, xs32,
+                          out[f"simca_{ncomp}"])
+    estimator_kernels(f"grid best N={CV_N0 + CV_N1}", best, x_dev, pred_best)
+
+    for key, sweep in out.items():
+        if key in ("rsvd", "eigh", "gram", "multiclass"):
+            n = len(CV_LVS)
+            check(all(np.isfinite(sweep[k]).all() for k in ("sens", "spec")),
+                  f"cv {key}: non-finite metrics")
+            check(sweep["pred"].shape[-2:] == (n, CV_N0 + CV_N1),
+                  f"cv {key}: pred shape {sweep['pred'].shape}")
+    gram_agree = float(np.mean(out["eigh"]["pred"] == out["gram"]["pred"]))
+    masked_agree = (out["masked_rsvd_accept"] == out["masked_eigh_accept"]
+                    ).float().mean().item()
+    for key in ("masked_rsvd", "masked_eigh"):
+        m = out[key]
+        check_limits(f"{key} fit", {"t2_limit": m.t2_res.limit,
+                                    "q_limit": m.q_res.limit,
+                                    "d_limit": m.d_limit})
+        check(m.n_samples.tolist() == list(UNEQUAL),
+              f"{key}: counts {m.n_samples.tolist()}")
+    # masks all on: the masked fit of three equal classes is fit_simca's
+    cals_dev = torch.as_tensor(cals.astype(np.float32), device=dev)
+    dense = fit_simca(cals_dev, K)
+    masked = fit_simca_masked(
+        cals_dev, torch.ones(cals.shape[:2], device=dev), K)
+    equal_rel = {key: ((a - b).abs() / b.abs()).max().item() for key, a, b in (
+        ("t2_limit", masked.t2_res.limit, dense.t2_res.limit),
+        ("q_limit", masked.q_res.limit, dense.q_res.limit),
+        ("d_limit", masked.d_limit, dense.d_limit))}
+    grid = out["grid"]
+    print(json.dumps({
+        "phase": "cv_main_path", "k1_launches": launches,
+        "rsvd_eff": out["rsvd"]["eff"].tolist(),
+        "eigh_eff": out["eigh"]["eff"].tolist(),
+        "multiclass_eff": out["multiclass"]["eff"].tolist(),
+        "grid_best": {"LV": grid["best_LV"], "params": grid["best_params"],
+                      "score": grid["best_score"]},
+        "grid_best_accept_rate": pred_best.mean(0).tolist(),
+        "cov_vs_gram_pred_agreement": gram_agree,
+        "masked_rsvd_vs_eigh_accept_agreement": masked_agree,
+        "masked_vs_fit_simca_rel_err": equal_rel,
+        "masked_counts": list(UNEQUAL)}), flush=True)
+    check(gram_agree >= 0.999, f"cov vs gram pred agreement {gram_agree}")
+    check(masked_agree >= 0.999,
+          f"masked rsvd vs eigh accept agreement {masked_agree}")
+    for key, e in equal_rel.items():
+        check(e <= 1e-3, f"masked fit of equal classes: {key} off by {e}")
+
+    # the card (f32) against the port's CPU f64, from the path's own calls
+    for solver in ("rsvd", "eigh"):
+        cv_vs_cpu_f64(x32, y, solver, calls[solver], sweep_kw[solver])
+    persistence_round_trip(dev, out["masked_rsvd"], decisions, xs32)
+
+    # timings: median of 3 timed calls a run, each with its split
+    del calls, out
+    for key, run in runs.items():
+        while len(timed[key]) < 3:
+            timed[key].append(clocked_call(run))
+    ms, split = {}, {}
+    for key, reps in timed.items():
+        mid = sorted(reps, key=lambda c: c["ms"])[1]
+        ms[key] = mid["ms"]
+        if key in sweep_kw or key in ("multiclass", "grid"):
+            decomp = mid["parts"]["fold_decomposition"]
+            limits = mid["parts"]["lv_limits"]
+            split[key] = {"decomposition_ms": decomp,
+                          "limit_engines_ms": limits,
+                          "rest_ms": ms[key] - decomp - limits,
+                          "limit_engines_share": limits / ms[key]}
+    n_fits = len(CV_LVS) * CV_FOLDS
+    line = {"phase": "cv_timings", "card": card,
+            **{f"cv_sweep_ms_{k}": ms[k] for k in sweep_kw},
+            **{f"cv_fits_per_s_{k}": 1e3 * n_fits / ms[k] for k in sweep_kw},
+            "cv_multiclass_ms": ms["multiclass"], "cv_grid_ms": ms["grid"],
+            "masked_fit_ms_rsvd": ms["masked_rsvd"],
+            "masked_fit_ms_eigh": ms["masked_eigh"], "sweep_split": split,
+            "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps(line), flush=True)
+    check(all(math.isfinite(v) for v in ms.values()), "a CV timing is "
+          "not finite")
+    return sum(launches.values())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -2040,6 +2405,8 @@ def main(argv=None) -> int:
     k5_record, decisions = decision_phases(dev, card, bw, f32_rate)
     records.append(k5_record)
     records += serving_phases(dev, card, (bw, f32_rate, int8_rate), decisions)
+    # 17. the CV slice; K1's launches on the main path include its own
+    records[0]["launches"] += cv_phases(dev, card, decisions)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 The JAX package ``ocm_tpu`` stays the reference; each module here mirrors
 its namesake there (``ops/linalg.py``, ``ops/special.py``,
 ``ops/kernels.py``, ``ops/bn.py``, ``stats/limits.py``,
-``models/simca.py``, ``models/vae.py``, ``models/bundle.py``,
-``models/trainer.py``) and is held against it by
-``tests/test_torch_port_*.py``.  The hand-written CUDA kernels live in
+``models/simca.py``, ``models/cv.py``, ``models/vae.py``,
+``models/bundle.py``, ``models/trainer.py`` and the rest) and is held
+against it by ``tests/test_torch_port_*.py``.  ``utils/msgpack_io.py``
+reads and writes the JAX package's model files without flax.  The hand-written CUDA kernels live in
 ``csrc/`` and are built by ``ops/_build.py``.
 
 This package imports ``torch``, ``numpy`` and the standard library only:

@@ -9,6 +9,8 @@ take the architecture (a ``ConvVAE1D``) and a bundle and run
 its device, under ``torch.inference_mode()``: the caller's module is left
 as it is, and a module that is already bound is used without a reload.
 
+``save_bundle``/``load_bundle`` write and read the JAX package's msgpack
+file of a bundle (``utils.msgpack_io``), so a model crosses either way.
 ``stack_bundles`` stacks N bundles (or N fitted ``VAESIMCAModel``s) along
 a new leading class axis, the multi-class serving input, and
 ``class_slice`` takes one class back out.
@@ -24,7 +26,9 @@ import numpy as np
 import torch
 
 from ocm_tpu_torch._device import resolve_device
-from ocm_tpu_torch.models.vae import ConvVAE1D, vae_state_dict_from_numpy
+from ocm_tpu_torch.models.vae import (ConvVAE1D, vae_state_dict_from_numpy,
+                                      vae_state_dict_to_numpy)
+from ocm_tpu_torch.utils import msgpack_io
 
 
 class OCMBundle(NamedTuple):
@@ -164,6 +168,27 @@ def ocm_bundle_from_numpy(tree, model: ConvVAE1D, device=None) -> OCMBundle:
             for f in OCMBundle._fields if f != "state_dict"}
     return OCMBundle(state_dict={k: v.to(device) for k, v in state.items()},
                      **rest)
+
+
+def save_bundle(path, bundle: OCMBundle, model: ConvVAE1D) -> None:
+    """Write ``bundle`` (of the architecture ``model``) as the JAX
+    package's ``save_bundle`` does: one msgpack file of its flax
+    ``params``/``batch_stats`` trees (``vae_state_dict_to_numpy``) and
+    the decision arrays, in its field order.  The format holds no
+    BatchNorm step counter: ``num_batches_tracked``, which the eval forward
+    does not read, loads as 0."""
+    params, batch_stats = vae_state_dict_to_numpy(bundle.state_dict, model)
+    rest = {f: getattr(bundle, f).detach().cpu().numpy()
+            for f in OCMBundle._fields if f != "state_dict"}
+    msgpack_io.save(path, {"params": params, "batch_stats": batch_stats,
+                           **rest}, sort_keys=False)
+
+
+def load_bundle(path, model: ConvVAE1D, device=None) -> OCMBundle:
+    """A bundle written by either package's ``save_bundle``, for the
+    architecture ``model`` (which takes the place of the JAX package's
+    template), on ``device`` (CUDA unless given)."""
+    return ocm_bundle_from_numpy(msgpack_io.load(path), model, device)
 
 
 def _paths(tree, path=""):

@@ -22,8 +22,9 @@ out as a batch dimension (masks (C, B), scatter (C, L, L)), and
 ``fit_classes_moments`` fits the C models in one batched solve.  Centered
 scatter products run in full f32 (``full_f32_matmul``).
 
-``save_moments``/``load_moments`` (msgpack through flax in the reference)
-wait for a torch-native format (ROADMAP.md queue 1 item 9).
+``save_moments``/``load_moments`` read and write the JAX package's
+msgpack file (``utils.msgpack_io``), so a statistic crosses between the
+packages either way.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from ocm_tpu_torch.models.simca import SIMCAModel
 from ocm_tpu_torch.ops.linalg import (deflated_thetas, eigh_desc_signed,
                                       full_f32_matmul, pca_topk_cov, pinv_psd)
 from ocm_tpu_torch.stats import limits as L
+from ocm_tpu_torch.utils import msgpack_io
 
 MOMENT_T2_METHODS = ("Fdistrig", "Fdist", "chi2")
 MOMENT_Q_METHODS = ("jm", "chi2box")
@@ -154,20 +156,26 @@ def moments_update_classes(moms: SpectraMoments, x, y,
     return moments_update(moms, x, w=masks)
 
 
-def save_moments(path: str, mom: SpectraMoments) -> None:
-    """The reference persists the statistic as flax msgpack, which the
-    card's machine lacks; a torch-native format comes with ROADMAP.md
-    queue 1 item 9."""
-    raise NotImplementedError(
-        "save_moments needs a torch-native format, ROADMAP.md queue 1 "
-        "item 9 (the reference's msgpack needs flax)")
+def save_moments(path, mom: SpectraMoments) -> None:
+    """Persist the statistic, the whole ingest state, so that a stream
+    survives a restart: the JAX package's msgpack file (``{n, mean,
+    scatter}``), byte-equal to the one it writes for the same arrays."""
+    msgpack_io.save(path, {f: a.detach().cpu().numpy()
+                           for f, a in mom._asdict().items()},
+                    sort_keys=False)
 
 
-def load_moments(path: str, length=None) -> SpectraMoments:
-    """See ``save_moments``."""
-    raise NotImplementedError(
-        "load_moments needs a torch-native format, ROADMAP.md queue 1 "
-        "item 9 (the reference's msgpack needs flax)")
+def load_moments(path, length=None, device=None) -> SpectraMoments:
+    """A statistic written by either package's ``save_moments``, on
+    ``device`` (CUDA unless given).  ``length``, if given, is checked."""
+    state = msgpack_io.load(path)
+    stored = state["mean"].shape[-1]
+    if length is not None and stored != length:
+        raise ValueError(f"stored statistic is for L={stored} spectra, "
+                         f"expected L={length}")
+    device = resolve_device(device)
+    return SpectraMoments(*(torch.as_tensor(state[f], device=device)
+                            for f in SpectraMoments._fields))
 
 
 def _validate_moment_methods(decision_type, t2_method, q_method):
@@ -226,8 +234,7 @@ def fit_simca_moments(mom: SpectraMoments, n_components: int,
         # spectrum stops at min(n, L)
         max_rank = torch.minimum(mom.n, torch.tensor(float(length), dtype=dt,
                                                      device=dev))
-        thetas = L.residual_thetas(eigenvalues, k,
-                                   max_rank=max_rank[..., None])
+        thetas = L.residual_thetas(eigenvalues, k, max_rank=max_rank)
     p = eigvecs[..., :k].mT
     # the training scores' covariance is exactly P C P^T (t is centered)
     with full_f32_matmul():

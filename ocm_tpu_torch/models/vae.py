@@ -313,6 +313,62 @@ def vae_state_dict_from_numpy(params, batch_stats, model: ConvVAE1D) -> dict:
     return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
 
 
+def vae_state_dict_to_numpy(state_dict, model: ConvVAE1D):
+    """The inverse of ``vae_state_dict_from_numpy``: this module's state
+    dict as a JAX ``ConvVAE1D``'s flax trees ``(params, batch_stats)`` of
+    numpy arrays (``batch_stats`` empty without BatchNorm)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    params: dict = {}
+    batch_stats: dict = {}
+
+    def conv(prefix):
+        return {"kernel": np.ascontiguousarray(
+                    sd[f"{prefix}.weight"].transpose(2, 1, 0)),
+                "bias": sd[f"{prefix}.bias"]}
+
+    def conv_t(prefix):
+        return {"kernel": np.ascontiguousarray(
+                    sd[f"{prefix}.weight"].transpose(2, 0, 1)[::-1]),
+                "bias": sd[f"{prefix}.bias"]}
+
+    def dense(prefix):
+        return {"kernel": np.ascontiguousarray(sd[f"{prefix}.weight"].T),
+                "bias": sd[f"{prefix}.bias"]}
+
+    def bn(prefix, name):
+        params[name] = {"scale": sd[f"{prefix}.weight"],
+                        "bias": sd[f"{prefix}.bias"]}
+        batch_stats[name] = {"mean": sd[f"{prefix}.running_mean"],
+                             "var": sd[f"{prefix}.running_var"]}
+
+    step = 2 + int(model.use_batchnorm) + int(model.dropout > 0)
+    enc_ch, enc_len = model.enc_shape
+    for b in range(model.conv_blocks):
+        params[f"enc_conv{b}"] = conv(f"encoder_conv.{b * step}")
+        if model.use_batchnorm:
+            bn(f"encoder_conv.{b * step + 1}", f"enc_bn{b}")
+    w_fc = sd["fc.0.weight"]                            # (hidden, C * L')
+    params["fc"] = {"kernel": np.ascontiguousarray(
+        w_fc.reshape(-1, enc_ch, enc_len).transpose(0, 2, 1)
+        .reshape(w_fc.shape[0], -1).T), "bias": sd["fc.0.bias"]}
+    params["fc_mu"] = dense("fc_mu")
+    params["fc_logvar"] = dense("fc_logvar")
+    params["fc_dec0"] = dense("fc_dec.0")
+    w_d = sd["fc_dec.3.weight"]                         # (C * L', hidden)
+    params["fc_dec1"] = {
+        "kernel": np.ascontiguousarray(
+            w_d.reshape(enc_ch, enc_len, -1).transpose(1, 0, 2)
+            .reshape(enc_len * enc_ch, -1).T),
+        "bias": np.ascontiguousarray(
+            sd["fc_dec.3.bias"].reshape(enc_ch, enc_len).T.reshape(-1))}
+    for b in range(model.conv_blocks):
+        params[f"dec_conv{b}"] = conv_t(f"decoder_conv.{b * step}")
+        if model.use_batchnorm:
+            bn(f"decoder_conv.{b * step + 1}", f"dec_bn{b}")
+    params["dec_out"] = conv(f"decoder_conv.{model.conv_blocks * step}")
+    return params, batch_stats
+
+
 # ---------------------------------------------------------------------------
 # beta-VAE losses
 # ---------------------------------------------------------------------------

@@ -22,6 +22,8 @@ before re-encoding.
 
 Entry points run on ``bundle.bind(model, bundle)`` under
 ``torch.inference_mode()``, on the bundle's device.
+``save_vaesimca_model``/``load_vaesimca_model`` write and read the JAX
+package's msgpack file of the fitted state.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ocm_tpu_torch.models.vae import ConvVAE1D
 from ocm_tpu_torch.ops.linalg import mahalanobis_sq, pinv_psd
 from ocm_tpu_torch.ops.special import erfinv
 from ocm_tpu_torch.stats import limits as L
+from ocm_tpu_torch.utils import msgpack_io
 
 
 class VAESIMCAModel(NamedTuple):
@@ -241,3 +244,18 @@ def vaesimca_model_from_numpy(tree, device=None) -> VAESIMCAModel:
     return VAESIMCAModel(**{f: torch.as_tensor(np.array(tree[f]),
                                                device=device)
                             for f in VAESIMCAModel._fields})
+
+
+def save_vaesimca_model(path, vs: VAESIMCAModel) -> str:
+    """Write a (possibly class-stacked) fitted latent-SIMCA state to one
+    msgpack file in the JAX package's layout (field -> array), byte-equal
+    to what it writes for the same arrays.  Returns ``path``."""
+    msgpack_io.save(path, {f: getattr(vs, f).detach().cpu().numpy()
+                           for f in vs._fields})
+    return path
+
+
+def load_vaesimca_model(path, device=None) -> VAESIMCAModel:
+    """A state written by either package's ``save_vaesimca_model``, on
+    ``device`` (CUDA unless given)."""
+    return vaesimca_model_from_numpy(msgpack_io.load(path), device)

@@ -1,5 +1,5 @@
 """Core linear algebra for class models (port of the main-path subset of
-``ocm_tpu/ops/linalg.py``).
+``ocm_tpu/ops/linalg.py``, with the CV sweep's theta tables).
 
 Every function takes optional leading batch (class) dimensions where the
 JAX package vmaps.  Covariance-scale products run in full f32 inside
@@ -172,6 +172,62 @@ def deflated_thetas(c, eigenvalues, eigvecs, n_components):
         th2 = (c_res * c_res).sum((-2, -1)).clamp_min(0.0)
         th3 = (c_res * (c_res @ c_res)).sum((-2, -1)).clamp_min(0.0)
     return th1, th2, th3
+
+
+class ThetaTables(NamedTuple):
+    """Per-decomposition tables for the residual moments at any cut k.
+
+    Built once from the fully deflated residual ``R = C - V diag(lam) V^T``
+    (all s directions removed): ``C_res(k) = R + sum_{j >= k} lam_j v_j
+    v_j^T``, so each trace power expands into R's invariants plus masked
+    sums over per-direction tables, with no (L, L) product per k.  The
+    leading eigenvalue stays inside R's elementwise deflation, so nothing
+    cancels at its scale.  Each leaf may carry leading batch axes.
+    """
+
+    tr1: torch.Tensor    # (...) tr(R)
+    tr2: torch.Tensor    # (...) ||R||_F^2 = tr(R^2)
+    tr3: torch.Tensor    # (...) tr(R^3)
+    lam: torch.Tensor    # (..., s) clamped eigenvalues
+    ryy: torch.Tensor    # (..., s) ||R v_j||^2
+    vry: torch.Tensor    # (..., s) v_j^T R v_j
+
+
+def deflated_theta_tables(c, eigenvalues, eigvecs) -> ThetaTables:
+    """``ThetaTables`` of a covariance (or a batch) and its top-s
+    eigenpairs: three (L, L)-scale products, once per decomposition."""
+    lam = eigenvalues.clamp_min(0.0)
+    with full_f32_matmul():
+        v = eigvecs * torch.sqrt(lam)[..., None, :]
+        r = c - v @ v.mT
+        y = r @ eigvecs                                     # (..., L, s)
+        tr1 = torch.diagonal(r, dim1=-2, dim2=-1).sum(-1)
+        tr2 = (r * r).sum((-2, -1))
+        tr3 = (r * (r @ r)).sum((-2, -1))
+        ryy = (y * y).sum(-2)
+        vry = (eigvecs * y).sum(-2)
+    return ThetaTables(tr1, tr2, tr3, lam, ryy, vry)
+
+
+def thetas_from_tables(tab: ThetaTables, n_components):
+    """Residual moments theta_1..3 beyond the cut ``n_components`` (an
+    int, or a tensor that broadcasts against the tables' batch shape) from
+    ``ThetaTables``: O(s) masked sums.
+
+    With ``P = sum_{j >= k} lam_j v_j v_j^T`` and orthonormal V:
+    theta_1 = tr(R) + sum lam; theta_2 = tr(R^2) + 2 sum lam vRv +
+    sum lam^2; theta_3 = tr(R^3) + 3 sum lam ||Rv||^2 + 3 sum lam^2 vRv +
+    sum lam^3.
+    """
+    idx = torch.arange(tab.lam.shape[-1], device=tab.lam.device)
+    k = n_components[..., None] if isinstance(n_components, torch.Tensor) \
+        else n_components
+    lam = torch.where(idx >= k, tab.lam, 0.0)
+    th1 = tab.tr1 + lam.sum(-1)
+    th2 = tab.tr2 + 2.0 * (lam * tab.vry).sum(-1) + (lam * lam).sum(-1)
+    th3 = (tab.tr3 + 3.0 * (lam * tab.ryy).sum(-1)
+           + 3.0 * (lam * lam * tab.vry).sum(-1) + (lam ** 3).sum(-1))
+    return th1.clamp_min(0.0), th2.clamp_min(0.0), th3.clamp_min(0.0)
 
 
 def mahalanobis_sq(x, mean, cov_inv):

@@ -64,7 +64,12 @@ def quantile(values, q):
 
 def t2_limit(t2, n_components, method: str = "Fdist", cl: float = 0.95,
              n_samples=None) -> LimitResult:
-    """Hotelling T^2 acceptance limit over the last axis of ``t2``."""
+    """Hotelling T^2 acceptance limit over the last axis of ``t2``.
+
+    ``n_components`` and ``n_samples`` (default: the length of that axis)
+    are ints or tensors that broadcast to the batch shape ``t2.shape[:-1]``
+    (masked fits carry a per-fold count and a per-cell k).
+    """
     if method not in T2_METHODS:
         raise ValueError(f"unknown t2 limit method {method!r}")
     shape, kw = t2.shape[:-1], dict(dtype=t2.dtype, device=t2.device)
@@ -85,16 +90,23 @@ def t2_limit(t2, n_components, method: str = "Fdist", cl: float = 0.95,
     return _chi2pom(t2, cl)
 
 
+def _per_batch(v):
+    """``v`` against a trailing axis: a tensor of the batch shape gains a
+    last axis of 1; an int stays as it is."""
+    return v[..., None] if isinstance(v, torch.Tensor) else v
+
+
 def residual_thetas(eigenvalues, n_components, max_rank=None):
     """theta_m = sum of the m-th powers of the residual eigenvalues.
 
     The slice beyond ``n_components`` is a mask over the last axis;
-    ``max_rank`` masks out padded eigenvalue slots.
+    ``max_rank`` masks out padded eigenvalue slots.  Each is an int or a
+    tensor of the batch shape (a fold's effective rank, a cell's k).
     """
     idx = torch.arange(eigenvalues.shape[-1], device=eigenvalues.device)
-    mask = idx >= n_components
+    mask = idx >= _per_batch(n_components)
     if max_rank is not None:
-        mask = mask & (idx < max_rank)
+        mask = mask & (idx < _per_batch(max_rank))
     e = torch.where(mask, eigenvalues, 0.0)
     return e.sum(-1), (e * e).sum(-1), (e * e * e).sum(-1)
 

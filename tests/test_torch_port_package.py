@@ -35,9 +35,11 @@ def test_import_pulls_in_no_jax():
             "ocm_tpu_torch.models.vae_decision, ocm_tpu_torch.models.vaesimca, "
             "ocm_tpu_torch.serving, ocm_tpu_torch.stats.qhf, "
             "ocm_tpu_torch.stats.metrics, ocm_tpu_torch.models.streaming, "
-            "ocm_tpu_torch.ops.preprocess, ocm_tpu_torch.probes.int8; "
+            "ocm_tpu_torch.ops.preprocess, ocm_tpu_torch.probes.int8, "
+            "ocm_tpu_torch.models.cv, ocm_tpu_torch.utils.msgpack_io; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'ocm_tpu', 'ml_dtypes')]; print(bad); "
+            "('jax', 'ocm_tpu', 'ml_dtypes', 'flax', 'msgpack')]; "
+            "print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -58,7 +60,7 @@ def test_sources_import_no_jax(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "ocm_tpu",
-                               "ml_dtypes"), (path, name)
+                               "ml_dtypes", "msgpack"), (path, name)
 
 
 def test_numpy_input_without_device_needs_cuda():
@@ -815,3 +817,60 @@ def test_uint16_chunk_widens_on_the_card(cuda):
     counts = np.array([[0, 1, 65535, 40000]], dtype=np.uint16)
     got = torch.from_numpy(counts).to(cuda).to(torch.float32)
     assert got.cpu().numpy().tolist() == [[0.0, 1.0, 65535.0, 40000.0]]
+
+
+def _unequal_masked_models(cuda, k):
+    """Three classes of 70, 52 and 34 spectra of 96 channels, fitted by
+    the masked fit on the card (f32)."""
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 1, 96)
+    counts = (70, 52, 34)
+    x = np.concatenate([
+        rng.normal(1, .08, (n, 1)) * np.sin(2 * np.pi * (3 + c) * t)
+        + 0.3 * c + rng.normal(0, .02, (n, 96))
+        for c, n in enumerate(counts)]).astype(np.float32)
+    y = np.repeat([0, 1, 2], counts)
+    return x, y, TS.fit_classes(x, y, [0, 1, 2], k, solver="eigh",
+                                device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 12])
+def test_kernel_on_masked_fit_models(cuda, k):
+    """K1 on a masked fit's stacked models (unequal counts) equals its
+    plain twin, one launch for the three classes."""
+    x, _, models = _unequal_masked_models(cuda, k)
+    args = [torch.as_tensor(x, device=cuda)] + [
+        a.contiguous() for a in (models.mean, models.components,
+                                 models.invcovT)]
+    before = kernels.t2q_scores_multiclass.launches
+    t2, q = kernels.t2q_scores_multiclass(*args)
+    torch.cuda.synchronize()
+    assert kernels.t2q_scores_multiclass.launches == before + 1
+    t2_p, q_p = kernels.t2q_scores_multiclass_plain(*args)
+    xc2 = ((args[0][None] - args[1][:, None]) ** 2).sum(-1)
+    assert ((t2 - t2_p).abs() / t2_p.abs()).max().item() < 1e-4
+    assert ((q - q_p).abs() / xc2).max().item() < 1e-5
+
+
+@pytest.mark.cuda
+def test_simca_predict_launches(cuda):
+    """``SIMCA.predict``: one K1 launch for every class at one k (models
+    stacked), one a class at a k each (here 4, 8, 12), each equal to
+    its class's own plain scores."""
+    x, y, _ = _unequal_masked_models(cuda, 4)
+    for ncomp, launches in ((8, 1), ([4, 8, 12], 3)):
+        est = TS.SIMCA(n_components=ncomp, model_class=[0, 1, 2],
+                       solver="rsvd", verbose=False, device=cuda).fit(x, y)
+        before = kernels.t2q_scores_multiclass.launches
+        pred = est.predict(x)
+        assert kernels.t2q_scores_multiclass.launches == before + launches
+        for i, cls in enumerate(est.model_class):
+            m = est._model[cls]
+            t2, q = kernels.t2q_scores_multiclass_plain(
+                torch.as_tensor(x, device=cuda), m.mean[None],
+                m.components[None], m.invcovT[None])
+            dred = TS.L.reduced_distance("alt", t2[0], q[0], m.t2_res,
+                                         m.q_res)
+            agree = np.mean(pred[:, i] == (dred < m.d_limit).cpu().numpy())
+            assert agree >= 0.999

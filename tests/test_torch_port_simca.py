@@ -132,8 +132,12 @@ def test_fit_classes_matches_jax():
     _close(port.d_limit, ref.d_limit)
     _close(port.q_res.limit, ref.q_res.limit)
     _close(port.t2_train, ref.t2_train)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TS.fit_classes(x[:-1], classes[:-1], [7, 8, 9], K, device="cpu")
+    # unequal class sizes: the masked fit, as in the reference
+    ref = JS.fit_classes(jnp.asarray(x[:-1]), classes[:-1], [7, 8, 9], K)
+    port = TS.fit_classes(x[:-1], classes[:-1], [7, 8, 9], K, device="cpu")
+    _close(port.d_limit, ref.d_limit)
+    _close(port.q_res.limit, ref.q_res.limit)
+    _close(port.t2_train, ref.t2_train)
     with pytest.raises(ValueError):
         TS.fit_classes(x, classes, [7, 8, 9], 1000, device="cpu")
 

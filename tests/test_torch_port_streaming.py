@@ -164,7 +164,7 @@ def test_single_fit_and_decisions_match_fit_simca():
     _close(dred, dred_f, rtol=1e-7)
 
 
-def test_moment_fit_validation():
+def test_moment_fit_validation(tmp_path):
     _, _, moms, _ = _class_moments()
     with pytest.raises(ValueError, match="per-sample training T"):
         TM.fit_classes_moments(moms, K, t2_method="perc")
@@ -176,7 +176,7 @@ def test_moment_fit_validation():
         TM.fit_classes_moments(moms, K, solver="svd")
     with pytest.raises(ValueError, match="class axis"):
         TM.fit_classes_moments(TM.SpectraMoments(*(a[0] for a in moms)), K)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TM.save_moments("moments.bin", moms)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TM.load_moments("moments.bin")
+    path = tmp_path / "moments.msgpack"
+    TM.save_moments(path, moms)
+    with pytest.raises(ValueError, match="expected L=7"):
+        TM.load_moments(path, length=7)
