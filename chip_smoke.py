@@ -7,7 +7,7 @@
 a copy of the script placed in an unpacked older tree times that tree's,
 so two versions are compared in turns within one chip call.
 
-Drives the port's five paths at full width and holds every hand-written
+Drives the port's six paths at full width and holds every hand-written
 CUDA kernel against its plain PyTorch twin:
 
 - SIMCA (first slice): a batched 3-class fit (3 x 700 x 500, k = 10,
@@ -38,13 +38,22 @@ CUDA kernel against its plain PyTorch twin:
   ``examples/cv_simca.py`` whose refit predicts through K1;
   ``fit_classes`` of classes of 700, 520 and 340 spectra (the masked
   fit) and the ``SIMCA`` estimator scoring 98,304 spectra through K1; the
-  four model files saved and loaded on the card.
+  four model files saved and loaded on the card;
+- the data layer (ninth slice): ``examples/hsi_pipeline.py --cube-scale``
+  (seven 512 x 512 x 288 uint16 camera cubes, 1,835,008 pixel spectra)
+  segmented by the native C++ core, fitted at the object level and
+  screened in the four serving modes (the int8 chunks prepared by the
+  native fused center + quantize pass), ``examples/simca_nuts.py``'s
+  object-aware splits (outlier removal on the card) and ``SIMCA``,
+  ``examples/cheese_eda_plsda.py``'s PLS-DA, and a training run resumed
+  from a ``TrainCheckpointer``.
 
 Phases, each of which exits non-zero on failure:
 
 1. device and numerics: card name and power limit, TF32 off, cuDNN's
    deterministic mode (selected when the package loads);
-2. build: the kernel library (one nvcc per source, in parallel, sm_90a),
+2. build: the kernel library (one nvcc per source, in parallel, sm_90a)
+   and the host C++ core (g++),
    every kernel's registers, shared memory and spills, and its SASS's
    tensor-core (IMMA/IGMMA/HMMA/HGMMA) and dp4a (IDP) instructions: K8's
    tensor-core kernel must have the first and none of the second;
@@ -111,7 +120,21 @@ Phases, each of which exits non-zero on failure:
    and sens within 2 samples, predictions 99.9 %); the four model kinds
    saved and reloaded on the card (scores bit-equal, a statistic refits
    to equal limits); the sweeps', grid's and masked fits' times with
-   each sweep's split between decomposition, limit engines and the rest.
+   each sweep's split between decomposition, limit engines and the rest;
+18. the data layer as a user calls it: the nut pipeline (native
+   segmentation equal to the scipy route, the object-level fit, every
+   pixel screened in the four modes with exact launches, 28 a pass: K1
+   raw and f32, bf16 K1, K8 and no K1 for int8; bf16 and int8 accepts
+   >= 99.5 % and raw >= 99.9 % of f32's; the int8 scorer's chunk
+   bit-equal to the numpy twin's prep; K1, bf16 K1 and K8 against their
+   twins at L 288), its HDF5 store round trip left out (no h5py on the
+   card's machine); the nuts ``SIMCA`` (exactly 1 K1, held against its
+   twin) and the outlier masks on the card against the CPU in f64 (keep
+   masks >= 99.9 % equal, the same surviving objects); the cheese PLS-DA
+   on the card against the CPU in f64 (the same best k, CV F1 within
+   0.01, test predictions >= 99 %); a 2 + 2 epoch run resumed from a
+   checkpoint against 4 uninterrupted epochs (1e-5; exact K2/K3/K4/K6
+   launches of 8 epochs); and the data layer's timings.
 
 Prints a JSON line with every kernel's record, the card's ``nvidia-smi``
 name and power limit, and as its last line
@@ -134,13 +157,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ocm_tpu_torch.models import bundle as vae_bundle
-from ocm_tpu_torch.models import cv, streaming
+from ocm_tpu_torch.models import cv, plsda, streaming
 from ocm_tpu_torch.models import trainer as vae_trainer
 from ocm_tpu_torch.models import vae_decision, vaesimca
 from ocm_tpu_torch.models.simca import (SIMCA, SIMCAModel, fit_classes,
@@ -155,6 +179,9 @@ from ocm_tpu_torch.probes import int8 as int8_probe
 from ocm_tpu_torch.serving import SIMCAScorer, VAEScorer
 from ocm_tpu_torch.stats import metrics
 from ocm_tpu_torch.stats.limits import LimitResult, reduced_distance, t2_limit
+from ocm_tpu_torch.utils import checkpoint
+from ocm_tpu_torch.utils import io as data_io
+from ocm_tpu_torch.utils import native, outliers, splits, synthetic
 
 N_CAL, LENGTH, N_CLASSES, N_SCORE, K = 700, 500, 3, 98304, 10
 SEED = 0
@@ -2162,6 +2189,510 @@ def cv_phases(dev, card, decisions):
     return sum(launches.values())
 
 
+# --- the data layer (phase 18) ------------------------------------------------
+
+# examples/hsi_pipeline.py --cube-scale: 512 x 512 x 288 uint16 cubes, 2 a
+# class x 3 classes + 1 unknown (1,835,008 pixel spectra), 12 disks of radius
+# 32-73 px a cube, counts at 1e4 a unit of reflectance, foreground at half
+# of it, objects of >= 8 px, 70 % of a class's objects (at most 20,000 of
+# their pixels) to calibrate k 10, screened in chunks of 65,536
+HSI_SIZE, HSI_L, HSI_CUBES, HSI_CLASSES = 512, 288, 2, 3
+HSI_RADIUS = (max(3, HSI_SIZE // 16), max(6, HSI_SIZE // 7))
+HSI_SCALE, HSI_MIN_PX, HSI_CAL_MAX, HSI_K = 1e4, 8, 20000, 10
+HSI_CHUNK = 65536
+HSI_MODES = ("raw-u16", "f32", "bf16", "int8")
+# examples/simca_nuts.py's SIMCA; examples/cheese_eda_plsda.py's sweep
+NUTS_K, PLS_MAX_K, PLS_FOLDS = 12, 25, 5
+
+
+def hsi_cubes():
+    """The example's uint16 camera cubes: (class, cube) for 2 cubes of each
+    class (seeds 97 c + i) and one of an unknown class (seed 9999)."""
+    def counts_cube(seed, nut_idx):
+        cube = synthetic.nut_cube(seed=seed, nut_idx=nut_idx, height=HSI_SIZE,
+                                  width=HSI_SIZE, length=HSI_L, n_objects=12,
+                                  radius_range=HSI_RADIUS)
+        return np.clip(np.round(cube * HSI_SCALE), 0, 65535).astype(np.uint16)
+
+    keys = [(97 * c + i, c) for c in range(HSI_CLASSES)
+            for i in range(HSI_CUBES)] + [(9999, HSI_CLASSES)]
+    # numpy's generators and array passes release the GIL: one thread a cube
+    with ThreadPoolExecutor(len(keys)) as ex:
+        return list(zip((c for _, c in keys),
+                        ex.map(lambda key: counts_cube(*key), keys)))
+
+
+def segment_cubes(cubes):
+    """Native segmentation of every class cube into the object store
+    (class -> images' object lists), each cube timed; the first cube also
+    by the scipy route (``io.extract_objects``), which must give the same
+    objects, pixel counts and centroids and bit-equal spectra."""
+    store, native_ms = {}, []
+    thr = 0.5 * HSI_SCALE
+    for cls, cube in cubes[:-1]:
+        t0 = time.perf_counter()
+        objs = native.extract_objects_native(cube, thr, min_pixels=HSI_MIN_PX)
+        native_ms.append(1e3 * (time.perf_counter() - t0))
+        store.setdefault(str(cls), []).append(objs)
+    from scipy import ndimage  # noqa: F401  (its import is not timed)
+
+    t0 = time.perf_counter()
+    ref = data_io.extract_objects(cubes[0][1], thr, min_pixels=HSI_MIN_PX)
+    scipy_ms = 1e3 * (time.perf_counter() - t0)
+    got = store["0"][0]
+    same = len(got) == len(ref) and all(
+        a["n_pixels"] == b["n_pixels"] and a["obj_idx"] == b["obj_idx"]
+        and a["centroid"] == b["centroid"]
+        and np.array_equal(a["spectral_data"], b["spectral_data"])
+        for a, b in zip(got, ref))
+    check(same, "native segmentation differs from the scipy route")
+    return store, {"segment_ms_native": native_ms,
+                   "segment_ms_scipy": scipy_ms,
+                   "objects_per_cube": [len(o) for imgs in store.values()
+                                        for o in imgs],
+                   "object_pixels": sum(o["n_pixels"] for imgs in
+                                        store.values() for img in imgs
+                                        for o in img)}
+
+
+def hsi_fit(store, dev):
+    """The example's object-level calibration split (70 % of each class's
+    objects, at most 20,000 of their pixels, ``default_rng(0)``), SNV +
+    SavGol on the card and the stacked fit, as a user calls them."""
+    rng = np.random.default_rng(0)
+    xs, ys = [], []
+    for cls in range(HSI_CLASSES):
+        objs = [o for img in store[str(cls)] for o in img]
+        order = rng.permutation(len(objs))[:max(1, int(0.7 * len(objs)))]
+        px = np.concatenate([objs[i]["spectral_data"] for i in order])
+        if px.shape[0] > HSI_CAL_MAX:
+            px = px[rng.choice(px.shape[0], HSI_CAL_MAX, replace=False)]
+        xs.append(px)
+        ys.append(np.full(px.shape[0], cls))
+    x_cal = prep_raw(torch.as_tensor(np.concatenate(xs), device=dev))
+    return fit_classes(x_cal, np.concatenate(ys), list(range(HSI_CLASSES)),
+                       HSI_K)
+
+
+def hsi_scorers(models):
+    """The example's four serving modes (examples/hsi_pipeline.py:131-141)."""
+    return {"raw-u16": SIMCAScorer(models, chunk_size=HSI_CHUNK,
+                                   preprocess_fn=prep_raw),
+            "f32": SIMCAScorer(models, chunk_size=HSI_CHUNK),
+            "bf16": SIMCAScorer(models, chunk_size=HSI_CHUNK,
+                                store_dtype=torch.bfloat16),
+            "int8": SIMCAScorer(models, chunk_size=HSI_CHUNK,
+                                store_dtype=torch.int8)}
+
+
+def hsi_screens(scorers, frames, prepped):
+    """Every pixel of every cube through each mode: one warm-up chunk, then
+    three timed passes; the first is the path's, its launches counted (the
+    counts set to 0 just before, read just after). Returns (screens of the
+    first pass, launches, ms of each pass)."""
+    screens, launches, ms = {}, {}, {}
+    for mode, scorer in scorers.items():
+        inputs = frames if mode == "raw-u16" else prepped
+        scorer.score(inputs[0][:HSI_CHUNK])
+        passes = []
+        for rep in range(3):
+            if rep == 0:
+                zero_launch_counts()
+            t0 = time.perf_counter()
+            outs = [scorer.score(f) for f in inputs]
+            passes.append(1e3 * (time.perf_counter() - t0))
+            if rep == 0:
+                launches[mode] = launch_counts()
+                screens[mode] = {k: np.concatenate([o[k] for o in outs])
+                                 for k in ("accept", "dred")}
+            del outs
+        ms[mode] = passes
+    return screens, launches, ms
+
+
+def prep_split(scorer, chunk, reps=5):
+    """One chunk through a mode: the scorer's host stage, the copy to the
+    card and the device decision + fetch (``score_prepared``), medians of
+    ``reps`` on the host clock, each synchronized."""
+    def host():
+        return scorer.host_chunk(chunk)
+
+    def copy_():
+        out = scorer.to_device(staged)
+        torch.cuda.synchronize()
+        return out
+
+    staged = host()
+    prepared = [(copy_(), chunk.shape[0])]
+    scorer.score_prepared(prepared)
+    times = {}
+    for key, fn in (("host_prep_ms", host), ("h2d_ms", copy_),
+                    ("decide_fetch_ms",
+                     lambda: scorer.score_prepared(prepared))):
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        times[key] = statistics.median(runs)
+    times["shipped_mb"] = sum(t.numel() * t.element_size()
+                              for t in staged) / 1e6
+    return times
+
+
+def capture_k8_operands(run):
+    """(xq, w) of the first K8 launch that ``run()`` makes through
+    ``ops.linalg`` (the int8 scorer's exact operands)."""
+    seen, real = [], linalg.int8_gemm_s32
+
+    def recording(xq, w, *args, **kwargs):
+        seen.append((xq, w))
+        return real(xq, w, *args, **kwargs)
+
+    linalg.int8_gemm_s32 = recording
+    try:
+        run()
+    finally:
+        linalg.int8_gemm_s32 = real
+    return seen[0]
+
+
+def k8_vs_plain(label, xq, w):
+    """K8's stored product against its twin as integers."""
+    got = kernels.int8_gemm_s32(xq, w)
+    torch.cuda.synchronize()
+    err = (got.long() - kernels.int8_gemm_s32_plain(xq, w).long()
+           ).abs().max().item()
+    print(json.dumps({"phase": "int8_vs_plain", "cases": [
+        {"shape": label, "n": xq.shape[0], "l": xq.shape[1],
+         "cols": w.shape[0], "store": True, "k8_max_abs_err": err}]}),
+          flush=True)
+    check(err == 0, f"K8 at {label}: error {err}")
+    return err
+
+
+def hsi_pipeline(dev, card):
+    """Phase 18 A: examples/hsi_pipeline.py --cube-scale on the card (its
+    HDF5 store round trip, step 2b, left out: h5py is not on the card's
+    machine). Returns (the store, launches by record, errors, timings)."""
+    t0 = time.perf_counter()
+    cubes = hsi_cubes()
+    timings = {"generate_s": time.perf_counter() - t0}
+    n_px = sum(c.shape[0] * c.shape[1] for _, c in cubes)
+    store, seg = segment_cubes(cubes)
+    t0 = time.perf_counter()
+    models = hsi_fit(store, dev)
+    torch.cuda.synchronize()
+    timings["fit_ms"] = 1e3 * (time.perf_counter() - t0)
+    check_limits("hsi fit", {"t2_limit": models.t2_res.limit,
+                             "q_limit": models.q_res.limit,
+                             "d_limit": models.d_limit})
+    frames = [cube.reshape(-1, HSI_L) for _, cube in cubes]
+    del cubes
+    # the non-raw modes' input: SNV + SavGol on the card, fetched once
+    t0 = time.perf_counter()
+    prepped = [prep_raw(torch.as_tensor(f, device=dev).to(torch.float32))
+               .cpu().numpy() for f in frames]
+    timings["card_prep_fetch_ms"] = 1e3 * (time.perf_counter() - t0)
+    scorers = hsi_scorers(models)
+    screens, launches, pass_ms = hsi_screens(scorers, frames, prepped)
+    print(json.dumps({"phase": "hsi_launches", "launches": launches}),
+          flush=True)
+    n_chunks = sum(-(-f.shape[0] // HSI_CHUNK) for f in frames)
+    none = {"k1_f32": 0, "k1_bf16": 0, "k7": 0, "k8": 0}
+    want = {"raw-u16": {**none, "k1_f32": n_chunks},
+            "f32": {**none, "k1_f32": n_chunks},
+            "bf16": {**none, "k1_bf16": n_chunks},
+            "int8": {**none, "k8": n_chunks}}
+    for mode in HSI_MODES:
+        check(launches[mode] == want[mode], f"hsi {mode} launches "
+              f"{launches[mode]} != {want[mode]}")
+
+    line = {"phase": "hsi_main_path", "cubes": len(frames), "pixels": n_px,
+            "chunks_a_pass": n_chunks, **seg}
+    for mode in ("raw-u16", "bf16", "int8"):
+        agree, dred = agreement(screens[mode], screens["f32"])
+        line[f"{mode}_vs_f32"] = {"accept": agree, "dred_of_max": dred}
+        floor = 0.999 if mode == "raw-u16" else 0.995
+        check(agree >= floor, f"hsi {mode} accepts vs f32 {agree} < {floor}")
+        if mode != "raw-u16":
+            check(dred <= 3e-2, f"hsi {mode} dred vs f32 {dred} > 3e-2")
+    # the int8 scorer's first prepared chunk against the numpy twin's prep
+    int8 = scorers["int8"]
+    chunk = prepped[0][:HSI_CHUNK]
+    got = [t.cpu().numpy() for t in int8.prepare(chunk)[0][0]]
+    want8 = native.quantize_rows_int8_plain(chunk, center=int8.center)
+    check(all(np.array_equal(g, w) for g, w in zip(got, want8)),
+          "int8 prepared chunk differs from the numpy twin's")
+    line["int8_prepared_bit_equal_numpy_twin"] = True
+    # quality, as the example's step 5: accept rates on the f32 screen
+    f32_acc = np.split(screens["f32"]["accept"], len(frames))
+    fg = [f.mean(axis=1) >= 0.5 * HSI_SCALE for f in frames]
+    rates = {}
+    for cls in range(HSI_CLASSES + 1):
+        own = [i for i in range(len(frames))
+               if (i // HSI_CUBES if i < len(frames) - 1 else HSI_CLASSES)
+               == cls]
+        acc = np.concatenate([f32_acc[i] for i in own])
+        f = np.concatenate([fg[i] for i in own])
+        if cls < HSI_CLASSES:
+            rates[f"class_{cls}"] = {
+                "own": float(acc[f][:, cls].mean()),
+                "any": float(acc[f].any(axis=1).mean()),
+                "background_any": float(acc[~f].any(axis=1).mean())}
+        else:
+            rates["unknown_any"] = float(acc[f].any(axis=1).mean())
+    line["accept_rates"] = rates
+    print(json.dumps(line), flush=True)
+
+    # the kernels at this slice's own plans: L 288, C 3, k 10
+    center = torch.as_tensor(scorers["f32"].center, device=dev)
+    centered = models._replace(mean=models.mean - center)
+    x0 = torch.as_tensor(chunk, device=dev) - center
+    errs = {"k1": compare_kernel(f"hsi f32 N={HSI_CHUNK} L={HSI_L} C=3 k=10",
+                                 x0, centered),
+            "k1_bf16": compare_kernel(
+                f"hsi bf16 N={HSI_CHUNK} L={HSI_L} C=3 k=10",
+                x0.to(torch.bfloat16), centered)}
+    xq, w = capture_k8_operands(lambda: int8.score(chunk))
+    errs["k8"] = k8_vs_plain(f"hsi int8 N={HSI_CHUNK} L={HSI_L} C=3 k=10",
+                             xq, w)
+
+    # timings: the screens, each mode's split on one chunk, the int8 prep
+    timings["hsi_screen_ms"] = {m: statistics.median(v)
+                                for m, v in pass_ms.items()}
+    timings["hsi_screen_pass_ms"] = pass_ms
+    timings["px_per_s"] = {m: n_px / (v / 1e3)
+                           for m, v in timings["hsi_screen_ms"].items()}
+    timings["chunk_split"] = {
+        m: prep_split(s, frames[0][:HSI_CHUNK] if m == "raw-u16" else chunk)
+        for m, s in scorers.items()}
+    nat, plain = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        native.quantize_rows_int8(chunk, center=int8.center)
+        nat.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        native.quantize_rows_int8_plain(chunk, center=int8.center)
+        plain.append(1e3 * (time.perf_counter() - t0))
+    timings["int8_prep_ms"] = {
+        "native": statistics.median(nat), "numpy_twin": statistics.median(plain),
+        "threads": native.threads_for(chunk.size),
+        "affinity_cpus": len(os.sched_getaffinity(0)),
+        "os_cpu_count": os.cpu_count()}
+    rec = {"t2q_scores_multiclass": launches["raw-u16"]["k1_f32"]
+           + launches["f32"]["k1_f32"],
+           "t2q_scores_multiclass_bf16": launches["bf16"]["k1_bf16"],
+           "int8_gemm_s32": launches["int8"]["k8"]}
+    return store, rec, errs, timings
+
+
+def nuts_simca(dev, store):
+    """Phase 18 B: examples/simca_nuts.py on the pipeline's segmented
+    objects (target class 0, outlier removal on): ``object_aware_splits``,
+    SNV + SavGol on the card, ``SIMCA(12, 0, 'alt', 'Fdist', 'jm')`` fit
+    and one ``predict`` (exactly 1 K1 launch), K1 against its twin, and
+    the outlier masks of class 0 on the card (f32) against the port's CPU
+    (f64). Returns (K1 launches, timings)."""
+    names = [str(c) for c in range(HSI_CLASSES)]
+    data = {c: [o for img in store[c] for o in img] for c in names}
+    t0 = time.perf_counter()
+    res = splits.object_aware_splits(data, names, "0", HSI_L, verbose=False,
+                                     device=dev)
+    timings = {"split_ms": 1e3 * (time.perf_counter() - t0)}
+    x_cal = prep_raw(torch.as_tensor(res.x_cal, device=dev))
+    x_test = prep_raw(torch.as_tensor(res.x_test, device=dev))
+    est = SIMCA(n_components=NUTS_K, model_class=0, type="alt", t2lim="Fdist",
+                qlim="jm", verbose=False).fit(
+        x_cal, np.zeros(x_cal.shape[0], dtype=int))
+    kernels.t2q_scores_multiclass.launches = 0
+    pred = est.predict(x_test, y_true=res.y_test)
+    torch.cuda.synchronize()
+    launches = kernels.t2q_scores_multiclass.launches
+    check(launches == 1, f"nuts SIMCA.predict launched K1 {launches} times")
+    estimator_kernels(f"nuts SIMCA N={x_test.shape[0]} L={HSI_L}", est,
+                      x_test, pred)
+
+    # class 0's pixels: the outlier mask on the card against CPU f64
+    objs = [np.asarray(o["spectral_data"], np.float32) for o in data["0"]]
+    x0 = np.vstack(objs)
+    obj_ids = np.repeat(np.arange(len(objs)), [len(o) for o in objs])
+    n_comp = outliers.effective_n_components(*x0.shape)
+    x_dev = prep_raw(torch.as_tensor(x0, device=dev))
+    x_cpu = prep_raw(torch.as_tensor(x0, dtype=torch.float64))
+    omega = default_omega(HSI_L, min(n_comp + 10, HSI_L), torch.float32, dev)
+    masks = {}
+    for solver in ("svd", "rsvd"):
+        om = omega if solver == "rsvd" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep, _, thr = outliers.mahalanobis_outlier_mask(
+            x_dev, n_comp, solver=solver, omega=om)
+        keep = keep.cpu().numpy()
+        timings[f"outlier_ms_{solver}"] = 1e3 * (time.perf_counter() - t0)
+        keep64, _, thr64 = outliers.mahalanobis_outlier_mask(
+            x_cpu, n_comp, solver=solver,
+            omega=None if om is None else om.double().cpu())
+        keep64 = keep64.numpy()
+        masks[solver] = {
+            "agreement": float(np.mean(keep == keep64)),
+            "threshold_rel_err": abs(float(thr) - float(thr64)) / float(thr64),
+            "objects_card": len(np.unique(obj_ids[keep])),
+            "objects_cpu_f64": len(np.unique(obj_ids[keep64])),
+            "same_objects": np.array_equal(np.unique(obj_ids[keep]),
+                                           np.unique(obj_ids[keep64]))}
+        if solver == "svd":
+            kept_rows = int(keep.sum())
+    split_rows = sum(res.splits["0"][p].shape[0] for p in
+                     ("cal", "val", "test"))
+    line = {"phase": "nuts_simca", "x_cal": list(x_cal.shape),
+            "x_test": list(x_test.shape), "k1_launches": launches,
+            "metrics": est.metrics[0], "class0_pixels": int(x0.shape[0]),
+            "class0_objects": len(objs), "outlier_masks_vs_cpu_f64": masks,
+            "split_rows_equal_card_mask": split_rows == kept_rows}
+    print(json.dumps(line), flush=True)
+    check(split_rows == kept_rows, f"class 0's splits hold {split_rows} "
+          f"rows, its card mask keeps {kept_rows}")
+    for solver, m in masks.items():
+        check(m["agreement"] >= 0.999, f"outlier mask ({solver}) card vs CPU "
+              f"f64 agreement {m['agreement']}")
+        check(m["same_objects"], f"outlier mask ({solver}): surviving objects "
+              "differ between the card and CPU f64")
+    return launches, timings
+
+
+def cheese_plsda(dev):
+    """Phase 18 C: examples/cheese_eda_plsda.py's PLS-DA on the card (f32)
+    and on the port's CPU (f64): the same best k, per-k CV F1 within 0.01,
+    test predictions >= 99 % equal. Returns timings."""
+    x_tr, y_tr, x_ts, y_ts = synthetic.cheese_like()
+    x_tr32, x_ts32 = x_tr.astype(np.float32), x_ts.astype(np.float32)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        curves = plsda.plsda_f1_curves(x_tr32, y_tr, PLS_MAX_K, PLS_FOLDS,
+                                       device=dev)
+        runs.append(1e3 * (time.perf_counter() - t0))
+    timings = {"plsda_curves_ms": statistics.median(runs)}
+    best = curves["best_n_components"]
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = plsda.plsda_fit_predict(x_tr32, y_tr, x_ts32, y_ts, best,
+                                      device=dev)
+        runs.append(1e3 * (time.perf_counter() - t0))
+    timings["plsda_fit_ms"] = statistics.median(runs)
+    d = plsda.discriminant_vectors(res.pls, res.lda)
+    ref = plsda.plsda_f1_curves(x_tr, y_tr, PLS_MAX_K, PLS_FOLDS,
+                                device="cpu")
+    res64 = plsda.plsda_fit_predict(x_tr, y_tr, x_ts, y_ts, best,
+                                    device="cpu")
+    d64 = plsda.discriminant_vectors(res64.pls, res64.lda)
+    f1_err = float(np.abs(curves["f1_cv"] - ref["f1_cv"]).max())
+    cal_err = float(np.abs(curves["f1_cal"] - ref["f1_cal"]).max())
+    agree = float(np.mean(res.y_pred == res64.y_pred))
+    line = {"phase": "cheese_plsda", "train": list(x_tr.shape),
+            "test": list(x_ts.shape), "best_k": best,
+            "best_k_cpu_f64": ref["best_n_components"],
+            "f1_cv": curves["f1_cv"].tolist(),
+            "f1_cv_max_abs_err_vs_cpu_f64": f1_err,
+            "f1_cal_max_abs_err_vs_cpu_f64": cal_err,
+            "f1_cv_err_by_k": np.abs(curves["f1_cv"] - ref["f1_cv"]).tolist(),
+            "test_f1": res.f1_test, "test_f1_cpu_f64": res64.f1_test,
+            "test_pred_agreement_vs_cpu_f64": agree,
+            "discriminant_vectors_max_abs_err_vs_cpu_f64": float(
+                np.abs(d - d64).max()),
+            "confusion": res.confusion.tolist()}
+    print(json.dumps(line), flush=True)
+    check(bool(np.isfinite(d).all()) and d.shape == (x_tr.shape[1], 4),
+          f"discriminant vectors {d.shape} not finite")
+    check(best == ref["best_n_components"], f"PLS-DA best k {best} on the "
+          f"card, {ref['best_n_components']} on the CPU in f64")
+    check(f1_err <= 0.01, f"PLS-DA CV F1 off CPU f64 by {f1_err} > 0.01")
+    check(agree >= 0.99, f"PLS-DA test predictions agree {agree} < 0.99")
+    return timings
+
+
+def checkpoint_resume(dev):
+    """Phase 18 D: the entry model trained 2 epochs, saved by
+    ``TrainCheckpointer``, restored by a fresh one and trained 2 more,
+    against 4 uninterrupted epochs (losses and weights within 1e-5 of
+    their scale). Returns (launches of the 8 epochs, timings)."""
+    x = vae_workload()
+    cfg2 = vae_trainer.TrainConfig(epochs=2, batch_size=VAE_BATCH, lr=1e-3,
+                                   loss_type="bce")
+    cfg4 = vae_trainer.TrainConfig(epochs=4, batch_size=VAE_BATCH, lr=1e-3,
+                                   loss_type="bce")
+    torch.manual_seed(0)
+    init = ConvVAE1D(**VAE_KW)
+    bn.bn_act_fwd.launches = bn.bn_act_bwd.launches = 0
+    kernels.reparam_kl.launches = kernels.reparam_kl_bwd.launches = 0
+    part1 = vae_trainer.train_vae(copy.deepcopy(init), x, x[:VAE_BATCH],
+                                  cfg2, seed=0, device=dev)
+    timings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        checkpoint.TrainCheckpointer(tmp, max_to_keep=2).save(
+            2, part1.final_state, part1.final_opt_state)
+        timings["checkpoint_save_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        state, opt_state, epoch = checkpoint.TrainCheckpointer(tmp).restore()
+        timings["checkpoint_restore_ms"] = 1e3 * (time.perf_counter() - t0)
+    part2 = vae_trainer.train_vae(ConvVAE1D(**VAE_KW), x, x[:VAE_BATCH],
+                                  cfg2, seed=0, init_state=(state, opt_state),
+                                  epoch_offset=epoch, device=dev)
+    full = vae_trainer.train_vae(copy.deepcopy(init), x, x[:VAE_BATCH], cfg4,
+                                 seed=0, device=dev)
+    torch.cuda.synchronize()
+    launches = {"bn_act_fwd": bn.bn_act_fwd.launches,
+                "bn_act_bwd": bn.bn_act_bwd.launches,
+                "reparam_kl": kernels.reparam_kl.launches,
+                "reparam_kl_bwd": kernels.reparam_kl_bwd.launches}
+    losses = np.concatenate([part1.train_losses, part2.train_losses,
+                             part1.val_losses, part2.val_losses])
+    want = np.concatenate([full.train_losses, full.val_losses])
+    loss_err = float(np.abs(losses - want).max() / np.abs(want).max())
+    w_err = max(rel_err(part2.final_state[k], full.final_state[k])
+                for k in full.final_state
+                if full.final_state[k].is_floating_point())
+    bit_equal = bool(np.array_equal(losses, want) and all(
+        torch.equal(part2.final_state[k], full.final_state[k])
+        for k in full.final_state))
+    steps = 8 * -(-VAE_N // VAE_BATCH)
+    print(json.dumps({"phase": "checkpoint_resume", "epoch": epoch,
+                      "launches": launches, "loss_rel_err": loss_err,
+                      "weights_rel_err": w_err, "bit_equal": bit_equal}),
+          flush=True)
+    check(epoch == 2, f"restored epoch {epoch} != 2")
+    check(launches == {"bn_act_fwd": 6 * steps, "bn_act_bwd": 6 * steps,
+                       "reparam_kl": steps + 8, "reparam_kl_bwd": steps},
+          f"resume launch counts {launches}")
+    check(loss_err <= 1e-5 and w_err <= 1e-5, f"resumed run off the "
+          f"uninterrupted one: losses {loss_err}, weights {w_err}")
+    return launches, timings
+
+
+def data_layer_phases(dev, card):
+    """Phase 18, the data layer at full width: the nut pipeline (A), the
+    nuts SIMCA (B), the cheese PLS-DA (C) and a checkpointed resume (D).
+    Returns {kernel record name: launches made on its path}."""
+    t_phase = time.perf_counter()
+    store, launches, errs, timings = hsi_pipeline(dev, card)
+    k1, t = nuts_simca(dev, store)
+    del store
+    launches["t2q_scores_multiclass"] += k1
+    timings.update(t)
+    timings.update(cheese_plsda(dev))
+    vae_launches, t = checkpoint_resume(dev)
+    launches.update(vae_launches)
+    timings.update(t)
+    timings["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "data_layer_timings", "card": card,
+                      "kernel_errs": errs, **timings}), flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -2198,8 +2729,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.library()                  # the host C++ core, g++ (phase 18)
     print(json.dumps({"phase": "build", "seconds": build_s,
-                      "library": _build.library_path().name}), flush=True)
+                      "library": _build.library_path().name,
+                      "native_seconds": time.perf_counter() - t0,
+                      "native_library": native.library_path().name}),
+          flush=True)
     for line in resource_report(_build.build_logs()):
         print(line, flush=True)
     sass_report()
@@ -2407,10 +2943,13 @@ def main(argv=None) -> int:
     records += serving_phases(dev, card, (bw, f32_rate, int8_rate), decisions)
     # 17. the CV slice; K1's launches on the main path include its own
     records[0]["launches"] += cv_phases(dev, card, decisions)
+    # 18. the data layer; its launches count into the records of its kernels
+    for kernel, n in data_layer_phases(dev, card).items():
+        next(r for r in records if r["name"] == kernel)["launches"] += n
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

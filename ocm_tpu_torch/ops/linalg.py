@@ -243,21 +243,19 @@ def quantize_rows_int8(a):
     Returns ``(q int8, scale f32, sumsq f32)``; ``sumsq`` is the exact
     squared norm of the quantized rows (the integer sum of squares times
     scale^2), computed once at storage time so that int8 scoring reads each
-    row once.  A numpy array (the serving scorer's host prep of each chunk)
-    gives numpy arrays, a tensor (the projection operand, on its device)
-    tensors, by the same f32 arithmetic: ``amax / 127`` floored at 1e-30
-    (an all-zero row gets a finite scale, not 0/0), round half to even,
-    clip to +-127.  (The JAX package routes 2-D numpy input through its
-    native library, bit-identical to this numpy form.)
+    row once.  A numpy array (host prep) gives numpy arrays through the
+    native threaded pass (``utils.native.quantize_rows_int8``, as the JAX
+    package routes numpy input, ``ocm_tpu/ops/linalg.py:408-414``); a
+    tensor (the projection operand, on its device) gives tensors.  Both
+    use the same f32 arithmetic, of which
+    ``utils.native.quantize_rows_int8_plain`` is the numpy twin:
+    ``amax / 127`` floored at 1e-30 (an all-zero row gets a finite scale,
+    not 0/0), round half to even, clip to +-127.
     """
     if isinstance(a, np.ndarray):
-        a = a.astype(np.float32, copy=False)
-        scale = np.maximum(np.abs(a).max(-1) / np.float32(127.0),
-                           np.float32(1e-30)).astype(np.float32)
-        q = np.clip(np.round(a / scale[..., None]), -127, 127).astype(np.int8)
-        sumsq = (np.sum(q.astype(np.int32) ** 2, axis=-1).astype(np.float32)
-                 * scale * scale)
-        return q, scale, sumsq
+        from ocm_tpu_torch.utils import native
+
+        return native.quantize_rows_int8(a)
     a = a.to(torch.float32)
     scale = (a.abs().amax(-1) / 127.0).clamp_min(1e-30)
     q = torch.round(a / scale[..., None]).clamp(-127, 127).to(torch.int8)

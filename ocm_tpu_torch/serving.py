@@ -38,9 +38,9 @@ from ocm_tpu_torch.models.simca import (SIMCAModel, predict_classes,
                                         predict_classes_int8)
 from ocm_tpu_torch.models.vae import ConvVAE1D
 from ocm_tpu_torch.models.vaesimca import predict_vaesimca
-from ocm_tpu_torch.ops.linalg import quantize_rows_int8
 from ocm_tpu_torch.stats.limits import LimitResult
 from ocm_tpu_torch.stats.qhf import qhf_batch_host
+from ocm_tpu_torch.utils import native
 
 
 def _pad_chunk(chunk: np.ndarray, size: int):
@@ -174,10 +174,11 @@ class SIMCAScorer(_ChunkedScorer):
       mean, or ``center``) cast to bf16 on the host (round to nearest even,
       as ``ml_dtypes``), 2 B an element; K1 reads it at half width and
       keeps means, loadings and statistics f32;
-    - ``torch.int8``: each host-centered residual row quantized to int8
-      with a per-row f32 scale and its exact squared norm
-      (``ops.linalg.quantize_rows_int8``), 1 B an element + 8 B a row;
-      the device scores through the exact int8 product (kernel K8), no K1.
+    - ``torch.int8``: each residual row centered and quantized to int8
+      with a per-row f32 scale and its exact squared norm in one threaded
+      host pass (``utils.native.quantize_rows_int8``), 1 B an element + 8
+      B a row; the device scores through the exact int8 product (kernel
+      K8), no K1.
 
     ``preprocess_fn`` (exclusive of ``store_dtype``) is raw ingest: chunks
     ship at their storage dtype (e.g. uint16 camera counts, 2 B an
@@ -256,22 +257,32 @@ class SIMCAScorer(_ChunkedScorer):
         f32 or raw chunks shipped as they are)."""
         return self._center
 
-    def _to_device(self, arrays) -> tuple:
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
-            self._device) for a in arrays)
-
-    def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
+    def host_chunk(self, chunk: np.ndarray) -> tuple:
+        """The host stage of one padded chunk: the CPU tensors that go to
+        the device (raw: the chunk at its storage dtype; f32/bf16: the
+        centered residual, bf16 cast on the host; int8: quantized rows,
+        scales and row norms)."""
         if self._raw_fn is not None:          # raw: the storage dtype as is
-            return self._to_device((chunk,))
+            return (torch.from_numpy(np.ascontiguousarray(chunk)),)
         x = np.asarray(chunk, np.float32)
+        if self._store_dtype == torch.int8:
+            # one threaded pass a row: center, quantize and row norm fused
+            # (ocm_tpu/serving.py:381-395)
+            return tuple(map(torch.from_numpy, native.quantize_rows_int8(
+                x, center=self._center)))
         if self._center is not None:
             x = x - self._center[None, :]
-        if self._store_dtype == torch.int8:
-            return self._to_device(quantize_rows_int8(x))
         t = torch.from_numpy(np.ascontiguousarray(x))
         if self._store_dtype == torch.bfloat16:
             t = t.to(torch.bfloat16)          # on the host: 2 B to ship
-        return (t.to(self._device),)
+        return (t,)
+
+    def to_device(self, host: tuple) -> tuple:
+        """The copy stage: ``host_chunk``'s tensors on the models' device."""
+        return tuple(t.to(self._device) for t in host)
+
+    def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
+        return self.to_device(self.host_chunk(chunk))
 
 
 class _Bf16Twin(torch.nn.Module):

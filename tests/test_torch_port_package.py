@@ -36,9 +36,15 @@ def test_import_pulls_in_no_jax():
             "ocm_tpu_torch.serving, ocm_tpu_torch.stats.qhf, "
             "ocm_tpu_torch.stats.metrics, ocm_tpu_torch.models.streaming, "
             "ocm_tpu_torch.ops.preprocess, ocm_tpu_torch.probes.int8, "
-            "ocm_tpu_torch.models.cv, ocm_tpu_torch.utils.msgpack_io; "
+            "ocm_tpu_torch.models.cv, ocm_tpu_torch.utils.msgpack_io, "
+            "ocm_tpu_torch.utils.native, ocm_tpu_torch.utils.synthetic, "
+            "ocm_tpu_torch.utils.io, ocm_tpu_torch.utils.outliers, "
+            "ocm_tpu_torch.utils.splits, ocm_tpu_torch.models.plsda, "
+            "ocm_tpu_torch.utils.checkpoint, ocm_tpu_torch.utils.profiling, "
+            "ocm_tpu_torch.utils.report; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'ocm_tpu', 'ml_dtypes', 'flax', 'msgpack')]; "
+            "('jax', 'ocm_tpu', 'ml_dtypes', 'flax', 'msgpack', 'orbax', "
+            "'h5py', 'matplotlib', 'scipy', 'sklearn')]; "
             "print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -61,6 +67,19 @@ def test_sources_import_no_jax(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "ocm_tpu",
                                "ml_dtypes", "msgpack"), (path, name)
+
+
+def test_native_core_is_the_ports_own_copy():
+    """The port builds its own ``csrc/ccl.cpp`` into its own ``_build/``,
+    never the JAX package's ``native/ccl.cpp`` or its cache."""
+    from ocm_tpu_torch.utils import native
+
+    assert native.SOURCE == ROOT / "ocm_tpu_torch" / "csrc" / "ccl.cpp"
+    assert native.BUILD_DIR == ROOT / "ocm_tpu_torch" / "_build"
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert "native/ccl.cpp" not in text, path
+        assert ".cache/ocm_tpu" not in text, path
 
 
 def test_numpy_input_without_device_needs_cuda():
@@ -874,3 +893,80 @@ def test_simca_predict_launches(cuda):
                                          m.q_res)
             agree = np.mean(pred[:, i] == (dred < m.d_limit).cpu().numpy())
             assert agree >= 0.999
+
+
+# the nut pipeline's screen (examples/hsi_pipeline.py --cube-scale): chunks
+# of 65,536 pixel spectra of 288 channels against 3 classes at k 10, and
+# SIMCA.predict of the nuts splits (one class at k 12)
+NUT_CHUNK, NUT_L = 65536, 288
+
+
+@pytest.mark.parametrize("n,c,k,x_bytes", [(NUT_CHUNK, 3, 10, 4),
+                                           (NUT_CHUNK, 3, 10, 2),
+                                           (30000, 1, 12, 4)], ids=str)
+def test_k1_plan_at_the_nut_pipeline_shapes(n, c, k, x_bytes):
+    """At L 288 (a whole number of 32-column chunks) every model stays
+    resident, with 4 stages: a plan the bench shapes (L 500, 3 stages) do
+    not reach."""
+    plan = kernels.k1_plan(n, NUT_L, c, k, x_bytes, *H100_LIMITS)
+    assert plan.resident and plan.window == NUT_L and plan.stages == 4
+    assert plan.smem_bytes <= H100_LIMITS[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_k1_at_the_nut_pipeline_shape(cuda, dtype):
+    gen = torch.Generator().manual_seed(18)
+    x = (0.1 * torch.randn(NUT_CHUNK, NUT_L, generator=gen)).to(cuda, dtype)
+    means = 0.05 * torch.randn(3, NUT_L, generator=gen)
+    comps = torch.linalg.qr(torch.randn(3, NUT_L, 10, generator=gen))[0].mT
+    a = torch.randn(3, 10, 10, generator=gen)
+    args = [x] + [t.to(cuda, torch.float32).contiguous()
+                  for t in (means, comps, a @ a.mT / 10 + torch.eye(10))]
+    t2, q = kernels.t2q_scores_multiclass(*args)
+    torch.cuda.synchronize()
+    t2_p, q_p = kernels.t2q_scores_multiclass_plain(*args)
+    xc2 = ((args[0].float()[None] - args[1][:, None]) ** 2).sum(-1)
+    torch.testing.assert_close(t2, t2_p, rtol=1e-4,
+                               atol=1e-6 * t2_p.abs().mean().item())
+    assert torch.all((q - q_p).abs() <= 1e-4 * xc2)
+
+
+@pytest.mark.cuda
+def test_k8_at_the_nut_pipeline_shape(cuda):
+    """The int8 screen's product: a chunk of 65,536 x 288 against the two
+    levels of 3 classes' loadings and means (2 (3 * 10 + 3) rows)."""
+    gen = torch.Generator().manual_seed(19)
+    xq = torch.randint(-127, 128, (NUT_CHUNK, NUT_L), dtype=torch.int8,
+                       generator=gen).to(cuda)
+    w = torch.randint(-127, 128, (66, NUT_L), dtype=torch.int8,
+                      generator=gen).to(cuda)
+    got = kernels.int8_gemm_s32(xq, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.int8_gemm_s32_plain(xq, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["svd", "rsvd"])
+def test_outlier_mask_on_the_card_matches_cpu_f64(cuda, solver):
+    """``mahalanobis_outlier_mask`` in f32 on the card against the CPU in
+    f64 on the same pixels (rsvd with the card's test matrix): keep masks
+    >= 99.9 % equal, distances within 1e-3 of their scale."""
+    from ocm_tpu_torch.ops.linalg import default_omega
+    from ocm_tpu_torch.utils.outliers import mahalanobis_outlier_mask
+
+    rng = np.random.default_rng(20)
+    scales = np.array([10, 8, 6, 5, 4, 3, 2.5, 2, 1.5, 1.2, 1, 0.8])
+    loadings = np.linalg.qr(rng.normal(size=(NUT_L, 12)))[0].T
+    x = (rng.normal(size=(20000, 12)) * scales) @ loadings + rng.normal(
+        0, 0.05, (20000, NUT_L))
+    omega = default_omega(NUT_L, 20, torch.float32, cuda)
+    keep, dist, thr = mahalanobis_outlier_mask(
+        x.astype(np.float32), 10, solver=solver, device=cuda, omega=omega)
+    keep64, dist64, thr64 = mahalanobis_outlier_mask(
+        x, 10, solver=solver, device="cpu", omega=omega.double().cpu())
+    agree = (keep.cpu() == keep64).double().mean().item()
+    assert agree >= 0.999, agree
+    err = (dist.double().cpu() - dist64).abs().max().item()
+    assert err <= 1e-3 * dist64.abs().max().item()
+    assert abs(float(thr) - float(thr64)) <= 1e-3 * float(thr64)
