@@ -7,7 +7,7 @@
 a copy of the script placed in an unpacked older tree times that tree's,
 so two versions are compared in turns within one chip call.
 
-Drives the port's six paths at full width and holds every hand-written
+Drives the port's seven paths at full width and holds every hand-written
 CUDA kernel against its plain PyTorch twin:
 
 - SIMCA (first slice): a batched 3-class fit (3 x 700 x 500, k = 10,
@@ -46,7 +46,15 @@ CUDA kernel against its plain PyTorch twin:
   native fused center + quantize pass), ``examples/simca_nuts.py``'s
   object-aware splits (outlier removal on the card) and ``SIMCA``,
   ``examples/cheese_eda_plsda.py``'s PLS-DA, and a training run resumed
-  from a ``TrainCheckpointer``.
+  from a ``TrainCheckpointer``;
+- HPO and sweeps (tenth slice): ``bench_all.py``'s 8-config batched sweep
+  of the entry model (320 spectra, 10 epochs at batch 64) as one stacked
+  module (``models/stacked.py``: one K2/K3 launch a BatchNorm layer and
+  one K4/K6 launch a step for every config) against the same 8 configs
+  run one by one, ``examples/hpo_nuts.py``'s ASHA, TPE and BOHB searches
+  at their defaults, ``examples/multiclass_vae_screen.py``'s class
+  trainer and stacked screen, and ``examples/sweep_vae.py``'s artifact
+  runner and its resume.
 
 Phases, each of which exits non-zero on failure:
 
@@ -134,7 +142,23 @@ Phases, each of which exits non-zero on failure:
    on the card against the CPU in f64 (the same best k, CV F1 within
    0.01, test predictions >= 99 %); a 2 + 2 epoch run resumed from a
    checkpoint against 4 uninterrupted epochs (1e-5; exact K2/K3/K4/K6
-   launches of 8 epochs); and the data layer's timings.
+   launches of 8 epochs); and the data layer's timings;
+19. HPO and sweeps as a user calls them: K2/K3 against their twins at
+   the 8-config stacked shapes (64 x 256-1,024 x 126-504, the single
+   model's cluster sizes) and K4 and K6's backward at (512, 16) with the
+   per-config dkl autograd hands over (one launch); the 8-config stacked
+   run with exact launches (6/6/1/1 a step, 1 K4 a validation), and again
+   at 1 and 3 configs (the same counts); every config against its
+   sequential ``train_vae`` (train losses 1e-5, val 2e-3, the same best
+   epoch, diverged configs diverged at the same epochs); one stacked step
+   on the card against the CPU in f64 (loss 1e-4, gradients 1e-3 of
+   norm); ASHA (its rungs and epochs equal to its rule's), TPE and BOHB,
+   each with exact K2/K3 launches from its returned schedule, a finite
+   best value, then ``fit_thresholds`` and ``decide_f``; the 5-class
+   trainer (exact launches) and its stacked screen equal to the single
+   ones; the sweep runner and its resume (no launch); and the timings:
+   stacked and single steps (with a grouped-convolution yardstick), their
+   profiles, configs/s stacked and sequential, and each search's time.
 
 Prints a JSON line with every kernel's record, the card's ``nvidia-smi``
 name and power limit, and as its last line
@@ -164,14 +188,15 @@ import torch
 import torch.nn.functional as F
 
 from ocm_tpu_torch.models import bundle as vae_bundle
-from ocm_tpu_torch.models import cv, plsda, streaming
+from ocm_tpu_torch.models import cv, plsda, stacked, streaming
 from ocm_tpu_torch.models import trainer as vae_trainer
 from ocm_tpu_torch.models import vae_decision, vaesimca
 from ocm_tpu_torch.models.simca import (SIMCA, SIMCAModel, fit_classes,
                                         fit_simca, fit_simca_masked,
                                         load_simca_model, predict_classes,
                                         save_simca_model, stack_models)
-from ocm_tpu_torch.models.vae import BatchNormAct, ConvVAE1D, beta_vae_loss
+from ocm_tpu_torch.models.vae import (BatchNormAct, ConvVAE1D, beta_vae_loss,
+                                      recon_loss)
 from ocm_tpu_torch.ops import _build, bn, kernels, linalg
 from ocm_tpu_torch.ops.linalg import default_omega
 from ocm_tpu_torch.ops.preprocess import snv_savgol
@@ -181,7 +206,8 @@ from ocm_tpu_torch.stats import metrics
 from ocm_tpu_torch.stats.limits import LimitResult, reduced_distance, t2_limit
 from ocm_tpu_torch.utils import checkpoint
 from ocm_tpu_torch.utils import io as data_io
-from ocm_tpu_torch.utils import native, outliers, splits, synthetic
+from ocm_tpu_torch.utils import (native, outliers, splits, sweep,
+                                 synthetic, tpe)
 
 N_CAL, LENGTH, N_CLASSES, N_SCORE, K = 700, 500, 3, 98304, 10
 SEED = 0
@@ -669,6 +695,7 @@ KERNEL_GROUPS = (("K2/K3 bn_act", ("bn_act",)),
                  ("gemm (cuBLAS)", ("gemm", "gemv", "cutlass", "splitk")),
                  ("Adam (foreach)", ("multi_tensor", "foreach")),
                  ("copy (H2D/D2H)", ("memcpy",)),
+                 ("generator draws", ("distribution", "randperm")),
                  ("activation (ELU/GELU)", ("elu_kernel", "gelu_kernel")),
                  ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
 # the host calls that launch a kernel, to hold the trace's kernel count to
@@ -2073,7 +2100,7 @@ def cv_phases(dev, card, decisions):
     # the path, as a user calls it (numpy in), K1 counted call by call.
     # The first call (the rsvd sweep) is the phase's warm-up: it runs every
     # limit engine, which holds over 97 % of each call's time; every other
-    # path call is the first of its run's 3 timed calls
+    # path call is the first of its run's 2 timed calls
     calls = {key: clocked_call(run) for key, run in runs.items()}
     timed = {key: [] if key == "rsvd" else [call]
              for key, call in calls.items()}
@@ -2159,14 +2186,15 @@ def cv_phases(dev, card, decisions):
         cv_vs_cpu_f64(x32, y, solver, calls[solver], sweep_kw[solver])
     persistence_round_trip(dev, out["masked_rsvd"], decisions, xs32)
 
-    # timings: median of 3 timed calls a run, each with its split
+    # timings: the faster of 2 timed calls a run, each with its split (3
+    # until phase 19 came: cut so that the whole run keeps its time)
     del calls, out
     for key, run in runs.items():
-        while len(timed[key]) < 3:
+        while len(timed[key]) < 2:
             timed[key].append(clocked_call(run))
     ms, split = {}, {}
     for key, reps in timed.items():
-        mid = sorted(reps, key=lambda c: c["ms"])[1]
+        mid = min(reps, key=lambda c: c["ms"])
         ms[key] = mid["ms"]
         if key in sweep_kw or key in ("multiclass", "grid"):
             decomp = mid["parts"]["fold_decomposition"]
@@ -2693,6 +2721,578 @@ def data_layer_phases(dev, card):
     return launches
 
 
+# --- HPO and sweeps (phase 19) ------------------------------------------------
+
+# bench_all.py:284-318's batched sweep: default_rng(4) spectra, 256
+# calibration and 64 validation, 8 configs of the entry model
+SWEEP_N, SWEEP_CAL, SWEEP_CFGS, SWEEP_EPOCHS = 320, 256, 8, 10
+SWEEP_LRS = np.logspace(-4, -2, SWEEP_CFGS)
+# the (B, C*F, L) of each BatchNorm of the 8-config stacked entry model
+STACKED_BN_SHAPES = [(64, 256, 501), (64, 512, 251), (64, 1024, 126),
+                     (64, 512, 252), (64, 256, 504), (64, 256, 504)]
+# examples/hpo_nuts.py's adaptive modes at their defaults (target peanut)
+HPO_SPACE = {"latent_dim": ("categorical", [8, 16, 32]),
+             "lr": ("loguniform", 1e-4, 1e-2),
+             "beta": ("loguniform", 1e-3, 4.0)}
+HPO_BASE = {"conv_blocks": 3, "n_filters": 16, "hidden_fc": 64,
+            "batch_size": 64, "loss_type": "bce"}
+HPO_TRIALS, HPO_EPOCHS, HPO_REDUCTION, HPO_SEED = 10, 25, 3, 42
+HPO_BRACKETS = 3
+VAE_KERNELS = ("bn_act_fwd", "bn_act_bwd", "reparam_kl", "reparam_kl_bwd")
+
+
+def vae_launch_counts() -> dict:
+    return {"bn_act_fwd": bn.bn_act_fwd.launches,
+            "bn_act_bwd": bn.bn_act_bwd.launches,
+            "reparam_kl": kernels.reparam_kl.launches,
+            "reparam_kl_bwd": kernels.reparam_kl_bwd.launches}
+
+
+def zero_vae_launch_counts():
+    bn.bn_act_fwd.launches = bn.bn_act_bwd.launches = 0
+    kernels.reparam_kl.launches = kernels.reparam_kl_bwd.launches = 0
+
+
+def counted(run):
+    """``run()`` with the four training kernels' counts set to 0 just
+    before and read just after: (out, counts, ms on the host clock)."""
+    torch.cuda.synchronize()
+    zero_vae_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, vae_launch_counts(), 1e3 * (time.perf_counter() - t0)
+
+
+def stacked_launches(bn_layers, steps, epochs, val_every=1):
+    """The exact launches of a stacked run, whatever its number of
+    configs: K2 and K3 once a BatchNorm layer a step, K4 once a step and
+    once a validation, K6's backward once a step."""
+    n_val = epochs // val_every
+    return {"bn_act_fwd": bn_layers * steps * epochs,
+            "bn_act_bwd": bn_layers * steps * epochs,
+            "reparam_kl": steps * epochs + n_val,
+            "reparam_kl_bwd": steps * epochs}
+
+
+def stacked_path_bn_shapes(dev, n_cfg):
+    """The (B, C*F, L) each BatchNorm of the n-config stacked entry model
+    sees in a train step."""
+    smodel = stacked.StackedVAE(ConvVAE1D(**VAE_KW), n_cfg).to(dev).train()
+    shapes = []
+    for mod in smodel.modules():
+        if isinstance(mod, stacked.StackedBatchNormAct):
+            # its input: the configs' (B, F, L), side by side for K2
+            mod.register_forward_hook(lambda m, i, o: shapes.append(
+                (i[0][0].shape[0], len(i[0]) * i[0][0].shape[1],
+                 i[0][0].shape[2])))
+    x = torch.zeros(n_cfg, VAE_BATCH, VAE_KW["input_length"], device=dev)
+    with torch.no_grad():
+        mu, lv = smodel.encode(x)
+        smodel.decode(smodel.reparameterize(mu, lv, torch.zeros_like(mu))[0])
+    return shapes
+
+
+def compare_reparam_per_config(gen, dev, n_cfg=SWEEP_CFGS, batch=VAE_BATCH,
+                               k=VAE_KW["latent_dim"]):
+    """K4 and K6's backward at the stacked (C*B, k) = (512, 16), the
+    backward's dz and dkl caught as autograd hands them to it for the
+    stacked loss sum_c beta_c * mean(kl_c) + <w, z>: dkl is beta_c / B,
+    different per config.  Exactly one K6 backward launch; both against
+    their twins (tolerance 1e-5 of scale)."""
+    mu, lv, eps, w = (torch.randn(4, n_cfg * batch, k, generator=gen)
+                      * 0.8).to(dev)
+    betas = torch.logspace(-3, 0.6, n_cfg, device=dev)
+    mu_, lv_ = mu.clone().requires_grad_(), lv.clone().requires_grad_()
+    z, kl = kernels.fused_reparam_kl(mu_, lv_, eps)
+    caught = {}
+    z.register_hook(lambda g: caught.__setitem__("dz", g))
+    kl.register_hook(lambda g: caught.__setitem__("dkl", g))
+    before = kernels.reparam_kl_bwd.launches
+    loss = (w * z).sum() + (betas * kl.view(n_cfg, batch).mean(1)).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    check(kernels.reparam_kl_bwd.launches == before + 1,
+          "the stacked backward did not launch K6's backward exactly once")
+    dkl = caught["dkl"]
+    ref_z, ref_kl = kernels.reparam_kl_plain(mu, lv, eps)
+    ref_dmu, ref_dlv = kernels.reparam_kl_bwd_plain(mu, lv, eps,
+                                                    caught["dz"], dkl)
+    errs = {"z": rel_err(z.detach(), ref_z), "kl": rel_err(kl.detach(), ref_kl),
+            "dmu": rel_err(mu_.grad, ref_dmu), "dlv": rel_err(lv_.grad, ref_dlv)}
+    line = {"phase": "reparam_per_config_vs_plain",
+            "shape": [n_cfg * batch, k], "dkl_stride": dkl.stride(),
+            "dkl_distinct": int(torch.unique(dkl).numel()),
+            "rel_err_of_scale": errs}
+    print(json.dumps(line), flush=True)
+    check(line["dkl_distinct"] == n_cfg, "dkl is not beta_c / B per config")
+    for n, e in errs.items():
+        check(e <= 1e-5, f"K4/K6 per config: {n} error {e} > 1e-5 of scale")
+    return (max((z.detach() - ref_z).abs().max().item(),
+                (kl.detach() - ref_kl).abs().max().item()),
+            max((mu_.grad - ref_dmu).abs().max().item(),
+                (lv_.grad - ref_dlv).abs().max().item()))
+
+
+def batched_sweep_data():
+    """bench_all.py:284-318's data, f32."""
+    rng = np.random.default_rng(4)
+    t = np.linspace(0, 1, VAE_KW["input_length"])
+    return (rng.normal(1, .08, (SWEEP_N, 1)) * np.sin(2 * np.pi * 3 * t)
+            + rng.normal(0, .02, (SWEEP_N, VAE_KW["input_length"]))
+            ).astype(np.float32)
+
+
+def batched_sweep(n_cfg=SWEEP_CFGS, epochs=SWEEP_EPOCHS, x=None):
+    x = batched_sweep_data() if x is None else x
+    return sweep.train_vae_vmapped(
+        ConvVAE1D(**VAE_KW), x[:SWEEP_CAL], x[SWEEP_CAL:],
+        SWEEP_LRS[:n_cfg], [0.0] * n_cfg, [1.0] * n_cfg, epochs=epochs,
+        batch_size=VAE_BATCH, loss_type="cosine", seed=0)
+
+
+def sequential_sweep(x):
+    """The same configs as sequential ``train_vae`` runs (config c: its
+    seed's initial weights and streams)."""
+    model = ConvVAE1D(**VAE_KW)
+    out, ms = [], []
+    for c in range(SWEEP_CFGS):
+        t0 = time.perf_counter()
+        s = stacked.config_seed(0, c)
+        cfg = vae_trainer.TrainConfig(epochs=SWEEP_EPOCHS,
+                                      batch_size=VAE_BATCH,
+                                      lr=float(SWEEP_LRS[c]),
+                                      loss_type="cosine")
+        out.append(vae_trainer.train_vae(stacked.seeded_vae(model, s),
+                                         x[:SWEEP_CAL], x[SWEEP_CAL:], cfg,
+                                         seed=s))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, ms
+
+
+def stacked_vs_sequential(res, seq):
+    """Every config of the stacked run against its sequential run: train
+    losses within rtol 1e-5, val losses within 2e-3, the same best epoch
+    (``tests/test_sweep.py:79-115``'s contract); a config that diverged
+    must diverge at the same epochs."""
+    worst = {"train": 0.0, "val": 0.0}
+    diverged = []
+    for c, r in enumerate(seq):
+        for key, got, ref, tol in (("train", res.train_losses[c],
+                                    r.train_losses, 1e-5),
+                                   ("val", res.val_losses[c], r.val_losses,
+                                    2e-3)):
+            fin = np.isfinite(ref)
+            check(np.array_equal(np.isfinite(got), fin),
+                  f"config {c}: {key} losses diverge at other epochs "
+                  f"({got} vs {ref})")
+            if not fin.all():
+                diverged.append(c)
+            if fin.any():
+                e = float(np.max(np.abs(got[fin] - ref[fin])
+                                 / np.abs(ref[fin])))
+                worst[key] = max(worst[key], e)
+                check(e <= tol, f"config {c}: {key} losses differ from the "
+                      f"sequential run by {e} > {tol}")
+        check(int(res.best_epoch[c]) == int(r.best_epoch),
+              f"config {c}: best epoch {res.best_epoch[c]} != "
+              f"{r.best_epoch}")
+    return worst, sorted(set(diverged))
+
+
+def stacked_step_vs_cpu_f64(dev, x_np, n_cfg=SWEEP_CFGS):
+    """One stacked step of the 8-config entry model from identical weights,
+    batches and eps: the card in f32 against the port's CPU in f64.  Loss
+    within 1e-4, each gradient within 1e-3 of its norm (or of 1e-3 of the
+    whole gradient's norm), as phase 7 holds the single step."""
+    template = ConvVAE1D(**VAE_KW)
+    models = [stacked.seeded_vae(template, s) for s in range(n_cfg)]
+    mean, std = x_np.mean(0), x_np.std(0) + 1e-12
+    rows = np.arange(VAE_BATCH)
+    xb = np.stack([(x_np[(8 * c + rows) % len(x_np)] - mean) / std
+                   for c in range(n_cfg)])
+    eps = np.random.default_rng(3).normal(
+        size=(n_cfg, VAE_BATCH, VAE_KW["latent_dim"]))
+    betas = np.logspace(-2, 0, n_cfg).tolist()
+    cfg = vae_trainer.TrainConfig(loss_type="cosine")
+    out = []
+    for d, dt in ((dev, torch.float32), ("cpu", torch.float64)):
+        smodel = stacked.stacked_vae(template, models, device=d,
+                                     dtype=dt).train()
+        losses = stacked.stacked_step_loss(
+            smodel, cfg, torch.as_tensor(xb, dtype=dt, device=d),
+            torch.as_tensor(eps, dtype=dt, device=d), betas)
+        losses.sum().backward()
+        out.append((losses.detach().double().cpu(),
+                    {n: p.grad.detach().double().cpu()
+                     for n, p in smodel.named_parameters()}))
+    (loss, g), (loss_r, g_r) = out
+    total = math.sqrt(sum(float(v.norm()) ** 2 for v in g_r.values()))
+    errs = {n: float((g[n] - g_r[n]).norm())
+            / max(float(g_r[n].norm()), 1e-3 * total) for n in g_r}
+    loss_rel = float(((loss - loss_r).abs() / loss_r.abs()).max())
+    worst = max(errs, key=errs.get)
+    print(json.dumps({"phase": "stacked_step_vs_cpu_f64", "configs": n_cfg,
+                      "losses": loss.tolist(), "loss_rel_err": loss_rel,
+                      "worst_grad": worst, "worst_grad_err": errs[worst],
+                      "grad_norm_cpu_f64": total}), flush=True)
+    check(loss_rel <= 1e-4, f"stacked step loss differs from CPU f64 by "
+          f"{loss_rel}")
+    check(errs[worst] <= 1e-3, f"stacked gradient {worst} differs from "
+          f"CPU f64 by {errs[worst]} of its norm")
+
+
+def asha_schedule(n_trials, max_epochs, reduction):
+    """ASHA's rungs and epoch budget, recomputed from its rule alone."""
+    k0 = max(1, math.ceil(math.log(max(n_trials, reduction))
+                          / math.log(reduction)))
+    rungs, r = [], max(1, max_epochs // reduction ** k0)
+    while r < max_epochs:
+        rungs.append(r)
+        r *= reduction
+    rungs.append(max_epochs)
+    total, alive, prev = 0, n_trials, 0
+    for i, target in enumerate(rungs):
+        total += (target - prev) * alive
+        prev = target
+        if i < len(rungs) - 1:
+            alive = max(1, math.ceil(alive / reduction))
+    return rungs, total
+
+
+def halving_k2(trials, rungs, steps, bn_layers=6):
+    """K2 launches of a successive-halving run: each rung trains each
+    architecture group of the trials that reached it as one stacked run
+    of (rung - previous rung) epochs."""
+    total, prev = 0, 0
+    for target in rungs:
+        reached = [tr for tr in trials if tr["epochs"] >= target]
+        groups = {tr["config"]["latent_dim"] for tr in reached}
+        total += bn_layers * steps * (target - prev) * len(groups)
+        prev = target
+    return total
+
+
+def hpo_evaluate(out, length, res):
+    """hpo_nuts.py's epilogue: the winner's thresholds, then ``decide_f``
+    on the test set; returns the test accuracy."""
+    cfg = out["best_config"]
+    model = ConvVAE1D(input_length=length, latent_dim=int(cfg["latent_dim"]),
+                      conv_blocks=3, n_filters=16, hidden_fc=64)
+    b = vae_decision.fit_thresholds(model, out["best_bundle"], res.x_cal,
+                                    loss_type="bce")
+    dec = vae_decision.decide_f(model, b, res.x_test)
+    pred = torch.where(dec.accept, 0, 1)
+    return float(metrics.vae_binary_metrics(pred, res.y_test, 2,
+                                            device=pred.device).accuracy)
+
+
+def hpo_runs(dev):
+    """examples/hpo_nuts.py's three adaptive modes at their defaults, each
+    then calibrated and scored; exact K2/K3 launches from the returned
+    schedules.  Returns (the runs' launch counts summed, the timings)."""
+    data = synthetic.nut_objects()
+    length = data["peanut"][0].shape[1]
+    res = splits.object_aware_splits(data, list(data), "peanut", length,
+                                     verbose=False)
+    steps = -(-res.x_cal.shape[0] // HPO_BASE["batch_size"])
+    kw = dict(seed=HPO_SEED, base_config=HPO_BASE, verbose=False)
+    runs = {
+        "asha": lambda: sweep.asha_vae_search(
+            res.x_cal, res.x_val, HPO_SPACE, n_trials=HPO_TRIALS,
+            max_epochs=HPO_EPOCHS, reduction=HPO_REDUCTION, **kw),
+        "tpe": lambda: tpe.tpe_vae_search(
+            res.x_cal, res.x_val, HPO_SPACE, n_trials=HPO_TRIALS,
+            max_epochs=HPO_EPOCHS, n_warmup_steps=min(10, max(
+                2, HPO_EPOCHS // 5)), **kw),
+        "bohb": lambda: tpe.bohb_vae_search(
+            res.x_cal, res.x_val, HPO_SPACE, n_brackets=HPO_BRACKETS,
+            trials_per_bracket=HPO_TRIALS, max_epochs=HPO_EPOCHS,
+            reduction=HPO_REDUCTION, **kw)}
+    rungs, total = asha_schedule(HPO_TRIALS, HPO_EPOCHS, HPO_REDUCTION)
+    line, launches = {"phase": "hpo", "cal": res.x_cal.shape[0],
+                      "steps_an_epoch": steps}, {}
+    for key, run in runs.items():
+        out, counts, ms = counted(run)
+        if key == "asha":
+            check(out["rungs"] == rungs and out["total_epochs"] == total,
+                  f"ASHA's schedule {out['rungs']}, {out['total_epochs']} "
+                  f"!= its rule's {rungs}, {total}")
+            want = halving_k2(out["trials"], out["rungs"], steps)
+        elif key == "bohb":
+            want = sum(halving_k2(h["trials"], h["rungs"], steps)
+                       for h in out["history"])
+        else:
+            want = 6 * steps * out["total_epochs"]
+        check(counts["bn_act_fwd"] == want == counts["bn_act_bwd"],
+              f"{key}: K2/K3 launches {counts} != {want}")
+        check(np.isfinite(out["best_value"]), f"{key}: best value not finite")
+        budget = HPO_TRIALS * HPO_EPOCHS * (HPO_BRACKETS if key == "bohb"
+                                            else 1)
+        line[key] = {"ms": ms, "total_epochs": out["total_epochs"],
+                     "full_fidelity_epochs": budget,
+                     "best_value": out["best_value"],
+                     "best_config": out["best_config"], "launches": counts,
+                     "test_accuracy": hpo_evaluate(out, length, res)}
+        if key == "tpe":
+            line[key]["n_pruned"] = out["n_pruned"]
+            if out["total_epochs"] >= budget:
+                line[key]["why_no_saving"] = (
+                    "no trial was pruned: every trial's best loss stayed "
+                    "at or below the median of the others at each epoch")
+        if key == "asha":
+            line[key]["rungs"] = out["rungs"]
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    print(json.dumps(line), flush=True)
+    return launches, {f"{k}_ms": line[k]["ms"] for k in runs}
+
+
+def classes_screen(dev):
+    """examples/multiclass_vae_screen.py's class trainer at its defaults
+    (every nut class, latent 6, 8 epochs), per-class thresholds, one
+    stacked ``VAEScorer`` screen held to the single-class screens (accepts
+    bit-equal, statistics within 1e-6 of scale, as phase 10)."""
+    data = synthetic.nut_objects(seed=42)
+    names = list(data)
+    length = data[names[0]][0].shape[1]
+    model = ConvVAE1D(input_length=length, latent_dim=6, conv_blocks=2,
+                      n_filters=16, hidden_fc=64)
+    cfg = vae_trainer.TrainConfig(epochs=8, batch_size=64, lr=1e-3,
+                                  loss_type="euclidean")
+    sps = [splits.object_aware_splits(data, names, nut, length,
+                                      verbose=False) for nut in names]
+    res, counts, ms = counted(lambda: sweep.train_vae_classes(
+        model, [s.x_cal for s in sps], [s.x_val for s in sps], cfg, seed=42))
+    n_max = max(s.x_cal.shape[0] for s in sps)
+    want = stacked_launches(4, -(-n_max // cfg.batch_size), cfg.epochs)
+    check(counts == want, f"train_vae_classes launches {counts} != {want}")
+    check(bool(np.isfinite(res.val_losses).all()),
+          "a class's validation loss is not finite")
+    fitted = [vae_decision.fit_thresholds(
+        model, vae_bundle.class_slice(res.bundle, c), sps[c].x_cal,
+        loss_type="euclidean") for c in range(len(names))]
+    x_mix = np.concatenate([np.asarray(s.x_test_in, np.float32)
+                            for s in sps])
+    kw = dict(variant="d2", loss_type="euclidean", chunk_size=2048)
+    out = VAEScorer(model, vae_bundle.stack_bundles(fitted), **kw).score(
+        x_mix)
+    worst = 0.0
+    for c, b in enumerate(fitted):
+        single = VAEScorer(model, b, **kw).score(x_mix)
+        col = {k: v[:, c] for k, v in out.items()}
+        check(np.array_equal(col["accept"], single["accept"]),
+              f"classes screen: class {c} accepts differ from single")
+        worst = max([worst, *stats_rel_err(col, single).values()])
+    print(json.dumps({"phase": "classes_screen", "classes": names,
+                      "cal_sizes": [s.x_cal.shape[0] for s in sps],
+                      "launches": counts, "train_vae_classes_ms": ms,
+                      "stats_rel_err": worst,
+                      "accept_rate": out["accept"].mean(0).tolist()}),
+          flush=True)
+    check(worst <= 1e-6, f"classes screen statistics differ by {worst}")
+    return counts, ms
+
+
+def sweep_runner():
+    """examples/sweep_vae.py's runner grid into a temporary directory, then
+    again: the second call resumes (the same metrics, no launch)."""
+    x_tr, y_tr, x_ts, y_ts = synthetic.cheese_like(seed=42)
+    # f32 on the card (the kernels take f32; float64 numpy would run the
+    # port's f64 parity mode), as the JAX example trains in f32
+    x_tr, x_ts = x_tr.astype(np.float32), x_ts.astype(np.float32)
+    x_cls = x_tr[y_tr == 0]
+    n_val = max(len(x_cls) // 6, 8)
+    x_cal, x_val = x_cls[:-n_val], x_cls[-n_val:]
+    y_bin = np.where(y_ts == 0, 0, np.maximum(y_ts, 1))
+    epochs = 20
+    configs = sweep.grid_product(
+        {"epochs": epochs, "batch_size": 64, "latent_dim": 8,
+         "conv_blocks": 2, "n_filters": 16, "hidden_fc": 64,
+         "loss_type": "cosine"}, {"lr": [1e-3, 3e-3], "beta": [0.1, 1.0]})
+    with tempfile.TemporaryDirectory() as tmp:
+        first, counts, ms = counted(lambda: sweep.run_vae_sweep(
+            configs, x_cal, x_val, x_ts, y_bin, tmp, verbose=False))
+        again, resumed, resume_ms = counted(lambda: sweep.run_vae_sweep(
+            configs, x_cal, x_val, x_ts, y_bin, tmp, verbose=False))
+        files = sorted(os.listdir(os.path.join(tmp, "run_0003")))
+    steps = -(-x_cal.shape[0] // 64)
+    k2 = 4 * steps * epochs * len(configs)
+    print(json.dumps({"phase": "sweep_runner", "runs": len(configs),
+                      "ms": ms, "resume_ms": resume_ms, "launches": counts,
+                      "resumed_launches": resumed, "files": files,
+                      "accuracy": [r["accuracy"] for r in first]}),
+          flush=True)
+    check(counts["bn_act_fwd"] == k2 == counts["bn_act_bwd"],
+          f"sweep runner K2/K3 launches {counts} != {k2}")
+    check(again == first, "the resumed sweep returned other metrics")
+    check(not any(resumed.values()), f"the resumed sweep launched {resumed}")
+    check(files == ["losses.json", "metrics.json", "model_bundle.msgpack",
+                    "params.json"], f"run artifacts {files}")
+    return counts
+
+
+def grouped_step(smodel, opt, xbs, eps):
+    """A yardstick the port does not use: the stacked step with each
+    layer batched over the configs (grouped convolutions on (B, C*F, L),
+    ``baddbmm`` dense layers, the loss vmapped), on the same parameters,
+    kernels and Adam.  It sums in other orders than a lone model, so its
+    configs drift from their sequential runs where training is unstable;
+    timed beside the port's per-config layers."""
+    n = smodel.n
+
+    def run(layers, h):
+        for mod in layers:
+            if isinstance(mod, stacked.StackedConv1d):
+                w = mod.weight
+                h = F.conv1d(h, w.reshape(-1, *w.shape[2:]),
+                             mod.bias.reshape(-1), mod.stride, mod.padding,
+                             groups=n)
+            elif isinstance(mod, stacked.StackedConvTranspose1d):
+                w = mod.weight
+                h = F.conv_transpose1d(h, w.reshape(-1, *w.shape[2:]),
+                                       mod.bias.reshape(-1), mod.stride,
+                                       mod.padding, mod.output_padding,
+                                       groups=n)
+            elif isinstance(mod, stacked.StackedBatchNormAct):
+                h = bn.fused_bn_act(h, mod.weight.reshape(-1),
+                                    mod.bias.reshape(-1), mod.eps, mod.act,
+                                    bn.k2_cluster_size(
+                                        h.shape[0], h.shape[1] // n,
+                                        h.shape[2]))[0]
+            elif isinstance(mod, stacked.StackedLinear):
+                h = torch.baddbmm(mod.bias.unsqueeze(1), h,
+                                  mod.weight.transpose(1, 2))
+            elif isinstance(mod, stacked.StackedAct):
+                h = bn.apply_act(h, mod.act)
+        return h
+
+    h = run(smodel.encoder_conv, xbs.transpose(0, 1))
+    h = run(smodel.fc, h.reshape(h.shape[0], n, -1).transpose(0, 1))
+    mu, lv = run([smodel.fc_mu], h), run([smodel.fc_logvar], h)
+    z, kl = smodel.reparameterize(mu, lv, eps)
+    h = run(smodel.fc_dec, z).transpose(0, 1)
+    h = run(smodel.decoder_conv, h.reshape(h.shape[0], -1,
+                                           smodel.enc_shape[1]))
+    x_rec = h.transpose(0, 1)[..., :smodel.input_length]
+    losses = torch.vmap(lambda a, b: recon_loss(a, b, "cosine"))(
+        xbs, x_rec) + kl.mean(1)
+    opt.zero_grad()
+    losses.sum().backward()
+    opt.step()
+    return losses.detach()
+
+
+def stacked_step_timings(dev, card, x_np, n_cfg=SWEEP_CFGS):
+    """The 8-config stacked step, the single step of the entry model and
+    the grouped yardstick: each step's time (events, median of 21) and
+    device time (``device_ms``), the stacked step's device-busy share (its
+    device time over its step time), and a profile of the stacked step
+    with its C noise draws (device time by kernel group)."""
+    template = ConvVAE1D(**VAE_KW)
+    smodel = stacked.stacked_vae(
+        template, [stacked.seeded_vae(template, s) for s in range(n_cfg)],
+        device=dev)
+    opt = stacked.StackedAdam(smodel, SWEEP_LRS[:n_cfg], [0.0] * n_cfg)
+    cfg = vae_trainer.TrainConfig(loss_type="cosine")
+    step = stacked.make_stacked_train_step(smodel, opt, cfg, [1.0] * n_cfg)
+    mean, std = x_np.mean(0), x_np.std(0) + 1e-12
+    xb = torch.as_tensor((x_np[:VAE_BATCH] - mean) / std, device=dev)
+    xbs = xb.expand(n_cfg, *xb.shape).contiguous()
+    gens = [torch.Generator(device=dev).manual_seed(s) for s in range(n_cfg)]
+
+    def noise():
+        return torch.stack([torch.randn((VAE_BATCH, VAE_KW["latent_dim"]),
+                                        generator=g, device=dev)
+                            for g in gens])
+
+    eps = noise()
+    model = ConvVAE1D(**VAE_KW).to(dev)
+    single = vae_trainer.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=1e-3), cfg)
+    runs = {"stacked": lambda: step(xbs, eps),
+            "single": lambda: single(xb, eps[0]),
+            "grouped_yardstick": lambda: grouped_step(smodel, opt, xbs, eps)}
+    line = {"phase": "stacked_step_timings", "card": card, "configs": n_cfg}
+    for key, fn in runs.items():
+        line[f"{key}_step_ms"] = median_ms(fn, 3, 21)
+        line[f"{key}_device_ms"] = device_ms(fn, 10)
+    for key in ("step", "device"):
+        line[f"stacked_{key}_vs_configs_x_single"] = line[
+            f"stacked_{key}_ms"] / (n_cfg * line[f"single_{key}_ms"])
+    line["stacked_device_busy_share"] = (line["stacked_device_ms"]
+                                         / line["stacked_step_ms"])
+    breakdown(lambda: step(xbs, noise()), reps=3,
+              phase="stacked_step_breakdown")
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def sweep_phases(dev, card, gen):
+    """Phase 19, HPO and sweeps at full width, as a user calls them;
+    returns the K2/K3/K4/K6 launches of the path's runs and the maximum
+    errors of the kernels against their twins at the stacked shapes."""
+    t_phase, parts = time.perf_counter(), {}
+    shapes = stacked_path_bn_shapes(dev, SWEEP_CFGS)
+    check(shapes == STACKED_BN_SHAPES,
+          f"stacked BatchNorm shapes {shapes} != {STACKED_BN_SHAPES}")
+    errs = [compare_bn(sh, "elu", gen, dev) for sh in shapes]
+    k2_err, k3_err = max(e[0] for e in errs), max(e[1] for e in errs)
+    k4_err, k6_err = compare_reparam_per_config(gen, dev)
+
+    # bench_all's batched sweep: the stacked run (the path), the same
+    # configs one by one, then the stacked run again, timed
+    x = batched_sweep_data()
+    steps = -(-SWEEP_CAL // VAE_BATCH)
+    res, counts, first_ms = counted(lambda: batched_sweep(x=x))
+    path = dict(counts)
+    check(counts == stacked_launches(6, steps, SWEEP_EPOCHS),
+          f"8-config stacked run launches {counts}")
+    for n_cfg in (1, 3):
+        _, c_n, _ = counted(lambda: batched_sweep(n_cfg, 2, x))
+        check(c_n == stacked_launches(6, steps, 2),
+              f"{n_cfg}-config stacked run launches {c_n}")
+    parts["kernels_and_first_run"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    seq, seq_ms = sequential_sweep(x)
+    seq_s = time.perf_counter() - t0
+    worst, diverged = stacked_vs_sequential(res, seq)
+    _, _, batch_ms = counted(lambda: batched_sweep(x=x))
+    batch_s = batch_ms / 1e3
+    print(json.dumps({
+        "phase": "batched_sweep", "card": card, "configs": SWEEP_CFGS,
+        "epochs": SWEEP_EPOCHS, "launches": counts,
+        "first_call_ms": first_ms, "stacked_s": batch_s,
+        "sequential_s": seq_s, "sequential_run_ms": seq_ms,
+        "batched_sweep_configs_per_s": SWEEP_CFGS / batch_s,
+        "sequential_configs_per_s": SWEEP_CFGS / seq_s,
+        "vs_sequential": seq_s / batch_s,
+        "worst_rel_err_vs_sequential": worst, "diverged_configs": diverged,
+        "best_epoch": res.best_epoch.tolist(),
+        "final_train_loss": res.train_losses[:, -1].tolist()}), flush=True)
+    parts["batched_sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stacked_step_vs_cpu_f64(dev, x)
+    parts["step_vs_cpu_f64"] = time.perf_counter() - t0
+    for name, run in (("hpo", hpo_runs), ("classes", classes_screen),
+                      ("runner", lambda _: (sweep_runner(),))):
+        t0 = time.perf_counter()
+        for k, n in run(dev)[0].items():
+            path[k] += n
+        parts[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timing = stacked_step_timings(dev, card, x)
+    parts["step_timings"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "hpo_sweeps", "launches": path,
+                      "seconds": time.perf_counter() - t_phase,
+                      "parts_s": parts,
+                      "stacked_step_ms": timing["stacked_step_ms"]}),
+          flush=True)
+    return path, {"bn_act_fwd": k2_err, "bn_act_bwd": k3_err,
+                  "reparam_kl": k4_err, "reparam_kl_bwd": k6_err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -2946,6 +3546,13 @@ def main(argv=None) -> int:
     # 18. the data layer; its launches count into the records of its kernels
     for kernel, n in data_layer_phases(dev, card).items():
         next(r for r in records if r["name"] == kernel)["launches"] += n
+    # 19. HPO and sweeps; its launches and its kernels' errors at the
+    #     stacked shapes go into their records
+    launches, errs = sweep_phases(dev, card, torch.Generator().manual_seed(19))
+    for kernel, n in launches.items():
+        rec = next(r for r in records if r["name"] == kernel)
+        rec["launches"] += n
+        rec["max_abs_err"] = max(rec["max_abs_err"], errs[kernel])
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -144,6 +144,7 @@ class ConvVAE1D(nn.Module):
         self.kernel_size, self.stride = kernel_size, stride
         self.hidden_fc, self.activation = hidden_fc, activation
         self.dropout, self.use_batchnorm = dropout, use_batchnorm
+        self.init_nonlinearity = init_nonlinearity
         self._rng = _DropoutRng()
         k, pad = kernel_size, kernel_size // 2
         self.enc_shape = encoder_shapes(input_length, conv_blocks, n_filters,

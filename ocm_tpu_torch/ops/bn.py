@@ -156,12 +156,16 @@ def k2_cluster_size(nb: int, nc: int, nl: int) -> int:
     return size
 
 
-def bn_act_fwd(x, gamma, beta, eps: float = 1e-5, act: str = "elu"):
+def bn_act_fwd(x, gamma, beta, eps: float = 1e-5, act: str = "elu",
+               cluster=None):
     """K2: training-mode BatchNorm + activation of x (B, C, L).
 
     Returns (out, mean, var), mean/var the (C,) batch statistics.  CPU
     tensors: the plain twin; CUDA tensors: the kernel on the current
-    stream, one launch of C clusters of ``k2_cluster_size`` blocks.
+    stream, one launch of C clusters of ``cluster`` blocks (default
+    ``k2_cluster_size`` of x's shape; a channel's sums depend only on the
+    cluster size, B and L, so channels stacked from several models keep
+    each model's split when given its size).
     """
     code = _act_code(act)
     if x.device.type == "cpu":
@@ -175,7 +179,7 @@ def bn_act_fwd(x, gamma, beta, eps: float = 1e-5, act: str = "elu"):
         err = _build.library().bn_act_fwd_f32(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
             mean.data_ptr(), var.data_ptr(), nb, nc, nl, eps, code,
-            k2_cluster_size(nb, nc, nl), stream_of(x))
+            cluster or k2_cluster_size(nb, nc, nl), stream_of(x))
     _build.check(err, "bn_act_fwd")
     bn_act_fwd.launches += 1
     return out, mean, var
@@ -185,12 +189,12 @@ bn_act_fwd.launches = 0
 
 
 def bn_act_bwd(x, gamma, beta, mean, var, dout, eps: float = 1e-5,
-               act: str = "elu"):
+               act: str = "elu", cluster=None):
     """K3: gradient of ``bn_act_fwd``'s out w.r.t. x, gamma and beta.
 
     Returns (dx, dgamma, dbeta).  CPU tensors: the plain twin; CUDA
     tensors: the kernel on the current stream, one launch of C clusters of
-    ``k2_cluster_size`` blocks, as K2's.
+    ``cluster`` (default ``k2_cluster_size``) blocks, as K2's.
     """
     code = _act_code(act)
     if x.device.type == "cpu":
@@ -206,7 +210,7 @@ def bn_act_bwd(x, gamma, beta, mean, var, dout, eps: float = 1e-5,
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
             var.data_ptr(), dout.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
             dbeta.data_ptr(), nb, nc, nl, eps, code,
-            k2_cluster_size(nb, nc, nl), stream_of(x))
+            cluster or k2_cluster_size(nb, nc, nl), stream_of(x))
     _build.check(err, "bn_act_bwd")
     bn_act_bwd.launches += 1
     return dx, dgamma, dbeta
@@ -220,11 +224,11 @@ class _FusedBNAct(torch.autograd.Function):
     mean, var (``ocm_tpu/ops/bn.py:214``)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, act):
+    def forward(ctx, x, gamma, beta, eps, act, cluster):
         x = x.contiguous()
-        out, mean, var = bn_act_fwd(x, gamma, beta, eps, act)
+        out, mean, var = bn_act_fwd(x, gamma, beta, eps, act, cluster)
         ctx.save_for_backward(x, gamma, beta, mean, var)
-        ctx.eps, ctx.act = eps, act
+        ctx.eps, ctx.act, ctx.cluster = eps, act, cluster
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -232,16 +236,19 @@ class _FusedBNAct(torch.autograd.Function):
     def backward(ctx, dout, _dmean, _dvar):
         x, gamma, beta, mean, var = ctx.saved_tensors
         dx, dgamma, dbeta = bn_act_bwd(x, gamma, beta, mean, var,
-                                       dout.contiguous(), ctx.eps, ctx.act)
-        return dx, dgamma, dbeta, None, None
+                                       dout.contiguous(), ctx.eps, ctx.act,
+                                       ctx.cluster)
+        return dx, dgamma, dbeta, None, None, None
 
 
-def fused_bn_act(x, gamma, beta, eps: float = 1e-5, act: str = "elu"):
+def fused_bn_act(x, gamma, beta, eps: float = 1e-5, act: str = "elu",
+                 cluster=None):
     """Training-mode BatchNorm + activation of x (B, C, ...), one kernel
     each direction on the card.
 
     Returns ``(out, mean, var)``; mean/var are the batch statistics for the
     running-average update and carry no gradient (flax's convention: the
-    running stats are state outside autodiff).
+    running stats are state outside autodiff).  ``cluster`` is K2's and
+    K3's blocks a channel (see ``bn_act_fwd``).
     """
-    return _FusedBNAct.apply(x, gamma, beta, eps, act)
+    return _FusedBNAct.apply(x, gamma, beta, eps, act, cluster)

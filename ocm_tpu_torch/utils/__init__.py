@@ -2,7 +2,8 @@
 the native C++ core (``native``), synthetic data (``synthetic``), data and
 artifact I/O (``io``), outlier removal (``outliers``), object-aware splits
 (``splits``), checkpoints (``checkpoint``), profiling (``profiling``),
-plots (``report``) and the msgpack model-file format (``msgpack_io``).
+plots (``report``), the msgpack model-file format (``msgpack_io``), and
+hyperparameter sweeps and search (``sweep``, ``tpe``).
 
 The submodules load on first access (``ocm_tpu_torch.utils.io``), so that
 importing one of them never imports the others: ``ops.linalg`` reaches
@@ -12,7 +13,7 @@ importing one of them never imports the others: ``ops.linalg`` reaches
 import importlib
 
 __all__ = ["checkpoint", "io", "msgpack_io", "native", "outliers",
-           "profiling", "report", "splits", "synthetic"]
+           "profiling", "report", "splits", "sweep", "synthetic", "tpe"]
 
 
 def __getattr__(name):

@@ -41,7 +41,8 @@ def test_import_pulls_in_no_jax():
             "ocm_tpu_torch.utils.io, ocm_tpu_torch.utils.outliers, "
             "ocm_tpu_torch.utils.splits, ocm_tpu_torch.models.plsda, "
             "ocm_tpu_torch.utils.checkpoint, ocm_tpu_torch.utils.profiling, "
-            "ocm_tpu_torch.utils.report; "
+            "ocm_tpu_torch.utils.report, ocm_tpu_torch.models.stacked, "
+            "ocm_tpu_torch.utils.sweep, ocm_tpu_torch.utils.tpe; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ocm_tpu', 'ml_dtypes', 'flax', 'msgpack', 'orbax', "
             "'h5py', 'matplotlib', 'scipy', 'sklearn')]; "
@@ -970,3 +971,131 @@ def test_outlier_mask_on_the_card_matches_cpu_f64(cuda, solver):
     err = (dist.double().cpu() - dist64).abs().max().item()
     assert err <= 1e-3 * dist64.abs().max().item()
     assert abs(float(thr) - float(thr64)) <= 1e-3 * float(thr64)
+
+
+# the (B, C*F, L) of the stacked entry model's BatchNorms at 8 configs, and
+# C*F above 1,024 (16 configs of 128 filters; 32 of the entry model's 128)
+STACKED_BN_CASES = [(64, 256, 501), (64, 512, 251), (64, 1024, 126),
+                    (64, 512, 252), (64, 256, 504), (64, 2048, 126),
+                    (64, 4096, 126), (8, 1536, 33)]
+
+
+def test_k2_cluster_size_at_the_stacked_shapes():
+    """Stacking configs on the channel axis keeps each channel's cluster:
+    the 8-config entry model's BatchNorms split every channel as the
+    single model's do (8, 4, 2 blocks at L 501, 251, 126), so a channel's
+    sums take the same blocks and order."""
+    for (nb, nc, nl), single in zip(STACKED_BN_CASES[:5],
+                                    TRAIN_BN_SHAPES[:5]):
+        assert nc == 8 * single[1] and (nb, nl) == (single[0], single[2])
+        assert bn.k2_cluster_size(nb, nc, nl) == bn.k2_cluster_size(*single)
+    for nb, nc, nl in STACKED_BN_CASES:
+        size = bn.k2_cluster_size(nb, nc, nl)
+        assert 1 <= size <= 8 and size & (size - 1) == 0
+        assert -(-nb * nl // size) <= bn.K2_ITEMS * bn.K2_THREADS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STACKED_BN_CASES, ids=str)
+def test_bn_kernels_at_the_stacked_shapes(cuda, shape):
+    """K2 and K3 against their twins at the stacked shapes, one launch
+    each (tolerances as ``test_bn_kernels_match_plain_twins``)."""
+    gen = torch.Generator().manual_seed(10)
+    x = (torch.randn(*shape, generator=gen) * 1.5 + 0.3).to(cuda)
+    g = (torch.rand(shape[1], generator=gen) + 0.5).to(cuda)
+    b = (torch.randn(shape[1], generator=gen) * 0.5).to(cuda)
+    dout = torch.randn(*shape, generator=gen).to(cuda)
+    before = (bn.bn_act_fwd.launches, bn.bn_act_bwd.launches)
+    out, mean, var = bn.bn_act_fwd(x, g, b, 1e-5, "elu")
+    dx, dg, db = bn.bn_act_bwd(x, g, b, mean, var, dout, 1e-5, "elu")
+    torch.cuda.synchronize()
+    assert (bn.bn_act_fwd.launches, bn.bn_act_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = (*bn.bn_act_fwd_plain(x, g, b, 1e-5, "elu"),
+           *bn.bn_act_bwd_plain(x, g, b, mean, var, dout, 1e-5, "elu"))
+    for got, want in zip((out, mean, var, dx, dg, db), ref):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cfg", [3, 8])
+def test_reparam_bwd_with_a_per_config_dkl(cuda, n_cfg):
+    """K6's backward as the stacked loss sum_c beta_c * mean(kl_c) hands
+    it dkl: beta_c / B, different per config; one launch, equal to its
+    twin within 1e-5 of scale."""
+    gen = torch.Generator().manual_seed(4)
+    batch, k = 64, 16
+    mu, lv, eps, w = (torch.randn(4, n_cfg * batch, k, generator=gen)
+                      * 0.8).to(cuda)
+    betas = torch.logspace(-3, 0.6, n_cfg, device=cuda)
+    m, v = mu.clone().requires_grad_(), lv.clone().requires_grad_()
+    z, kl = kernels.fused_reparam_kl(m, v, eps)
+    caught = {}
+    kl.register_hook(lambda g: caught.__setitem__("dkl", g))
+    before = kernels.reparam_kl_bwd.launches
+    ((w * z).sum() + (betas * kl.view(n_cfg, batch).mean(1)).sum()
+     ).backward()
+    torch.cuda.synchronize()
+    assert kernels.reparam_kl_bwd.launches == before + 1
+    dkl = caught["dkl"]
+    assert torch.unique(dkl).numel() == n_cfg
+    ref = kernels.reparam_kl_bwd_plain(mu, lv, eps, w, dkl)
+    for a, r in zip((m.grad, v.grad), ref):
+        torch.testing.assert_close(a, r, rtol=1e-5,
+                                   atol=1e-5 * r.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cfg", [1, 3, 8])
+def test_stacked_step_launches_whatever_the_configs(cuda, n_cfg):
+    """One stacked train step of the entry model launches 6 K2, 6 K3, 1 K4
+    and 1 K6 backward, at 1, 3 or 8 configs."""
+    from ocm_tpu_torch.models import stacked
+
+    template = TV.ConvVAE1D(501, 16)
+    smodel = stacked.stacked_vae(
+        template, [stacked.seeded_vae(template, s) for s in range(n_cfg)],
+        device=cuda)
+    opt = stacked.StackedAdam(smodel, [1e-3] * n_cfg, [0.0] * n_cfg)
+    step = stacked.make_stacked_train_step(
+        smodel, opt, TT.TrainConfig(loss_type="cosine"), [1.0] * n_cfg)
+    gen = torch.Generator().manual_seed(5)
+    xb = torch.randn(n_cfg, 64, 501, generator=gen).to(cuda)
+    eps = torch.randn(n_cfg, 64, 16, generator=gen).to(cuda)
+    counters = (bn.bn_act_fwd, bn.bn_act_bwd, kernels.reparam_kl,
+                kernels.reparam_kl_bwd)
+    before = [f.launches for f in counters]
+    losses = step(xb, eps)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [6, 6, 1, 1]
+    assert losses.shape == (n_cfg,) and bool(torch.isfinite(losses).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TRAIN_BN_SHAPES[:3], ids=str)
+def test_bn_kernels_side_by_side_equal_each_models_own(cuda, shape):
+    """Three models' channels side by side, launched with one model's
+    cluster size (as ``StackedBatchNormAct`` does), give each model's own
+    K2/K3 results bit for bit: a channel's sums depend on the cluster
+    size, B and L only."""
+    gen = torch.Generator().manual_seed(11)
+    nb, nc, nl = shape
+    xs = [(torch.randn(nb, nc, nl, generator=gen) * 1.5 + 0.3).to(cuda)
+          for _ in range(3)]
+    douts = [torch.randn(nb, nc, nl, generator=gen).to(cuda)
+             for _ in range(3)]
+    gs = [(torch.rand(nc, generator=gen) + 0.5).to(cuda) for _ in range(3)]
+    bs = [(torch.randn(nc, generator=gen) * 0.5).to(cuda) for _ in range(3)]
+    size = bn.k2_cluster_size(*shape)
+    x, dout = torch.cat(xs, 1), torch.cat(douts, 1)
+    g, b = torch.cat(gs), torch.cat(bs)
+    out, mean, var = bn.bn_act_fwd(x, g, b, 1e-5, "elu", size)
+    dx, dg, db = bn.bn_act_bwd(x, g, b, mean, var, dout, 1e-5, "elu", size)
+    for c in range(3):
+        ch = slice(c * nc, (c + 1) * nc)
+        o, m, v = bn.bn_act_fwd(xs[c], gs[c], bs[c], 1e-5, "elu")
+        d = bn.bn_act_bwd(xs[c], gs[c], bs[c], m, v, douts[c], 1e-5, "elu")
+        for got, want in ((out[:, ch], o), (mean[ch], m), (var[ch], v),
+                          (dx[:, ch], d[0]), (dg[ch], d[1]), (db[ch], d[2])):
+            assert torch.equal(got, want)
