@@ -7,7 +7,7 @@
 a copy of the script placed in an unpacked older tree times that tree's,
 so two versions are compared in turns within one chip call.
 
-Drives the port's seven paths at full width and holds every hand-written
+Drives the port's eight paths at full width and holds every hand-written
 CUDA kernel against its plain PyTorch twin:
 
 - SIMCA (first slice): a batched 3-class fit (3 x 700 x 500, k = 10,
@@ -54,7 +54,20 @@ CUDA kernel against its plain PyTorch twin:
   run one by one, ``examples/hpo_nuts.py``'s ASHA, TPE and BOHB searches
   at their defaults, ``examples/multiclass_vae_screen.py``'s class
   trainer and stacked screen, and ``examples/sweep_vae.py``'s artifact
-  runner and its resume.
+  runner and its resume;
+- the front doors (eleventh slice): float64 input on the card (fault F1:
+  ``cheese_like()``'s float64 arrays, not cast, computed in float32), the
+  CLI's commands in-process through ``ocm_tpu_torch.cli.main`` at its own
+  full width (``--synthetic cheese``: 5 classes x 140 spectra x 501
+  channels; the entry model ``ConvVAE1D(501, 16)`` for its default 100
+  epochs), ``python -m ocm_tpu_torch info`` in a subprocess, the
+  reference ``.pth`` export read back by ``VAEScorer.from_torch_checkpoint``,
+  and the HTTP server.  Two parts stay out, because the card's machine has
+  neither scikit-learn nor h5py: the sklearn estimators
+  (``sklearn_api.py``, which call the same ``fit_simca``, ``fit_classes``,
+  ``predict_classes``, ``train_vae`` and ``fit_vaesimca`` as this phase)
+  and ``ingest`` / ``.h5`` input; the CPU tests hold them against
+  ``ocm_tpu``.
 
 Phases, each of which exits non-zero on failure:
 
@@ -158,7 +171,30 @@ Phases, each of which exits non-zero on failure:
    trainer (exact launches) and its stacked screen equal to the single
    ones; the sweep runner and its resume (no launch); and the timings:
    stacked and single steps (with a grouped-convolution yardstick), their
-   profiles, configs/s stacked and sequential, and each search's time.
+   profiles, configs/s stacked and sequential, and each search's time;
+20. the front doors as a user drives them: F1 (``SIMCA``, ``fit_classes``
+   + ``predict_classes``, ``train_vae``, ``train_vae_classes`` and a
+   2-trial ASHA on float64 numpy: float32 results with exact K1 and
+   K2/K3/K4/K6 launches; a float64 CUDA tensor refused with ValueError);
+   ``simca``, ``simca --all-classes`` (the masked fit), ``cv --refit``,
+   ``stream-update`` twice then ``stream-fit``, and ``plsda``, each also
+   run with ``--platform cpu`` (the port's CPU f64): limits within 1e-3,
+   sensitivity and specificity within 2 samples, accepts >= 99.9 %; every
+   SIMCA run dir screened in f32, bf16 and int8 (exactly 1 K1, 1 bf16 K1,
+   1 K8 and no K1 a chunk of 8,192; bf16 and int8 accepts >= 99.5 % of
+   f32's and dred within 3e-2 of its max, phase 16's contract), and K1,
+   bf16 K1 and K8 against their twins at each screen's own operands
+   (C 1 and C 5 at L 501, the path's decisions held against the twin's);
+   ``train-vae`` and ``train-vae
+   --all-classes`` at their defaults with exact launches from the class
+   split sizes, finite and falling losses, every ``--variant`` and bf16
+   screen (no kernel, no K5), ``hpo --algo asha`` at its defaults (exact
+   K2/K3/K4/K6 launches from its rungs and trials),
+   ``export-torch`` and the ``.pth``'s screen bit-equal to the run dir's;
+   the server over the stacked SIMCA run dir (warmup, a 65,536-spectrum
+   npz request: exactly 8 K1 and bit-equal to ``score``, JSON, 8
+   concurrent posts, a 429 at ``max_queue=1``, ``/reload`` to the VAE
+   run dir), and the commands' and requests' times.
 
 Prints a JSON line with every kernel's record, the card's ``nvidia-smi``
 name and power limit, and as its last line
@@ -3293,6 +3329,640 @@ def sweep_phases(dev, card, gen):
                   "reparam_kl": k4_err, "reparam_kl_bwd": k6_err}
 
 
+# --- the front doors (phase 20) -----------------------------------------------
+
+# every kernel record's counter, by record name
+FRONT_COUNTERS = {
+    "t2q_scores_multiclass": (kernels.t2q_scores_multiclass, "launches"),
+    "t2q_scores_multiclass_bf16": (kernels.t2q_scores_multiclass,
+                                   "launches_bf16"),
+    "int8_gemm_s32": (kernels.int8_gemm_s32, "launches"),
+    "int8_tile_sum": (kernels.int8_tile_sum, "launches"),
+    "bn_act_fwd": (bn.bn_act_fwd, "launches"),
+    "bn_act_bwd": (bn.bn_act_bwd, "launches"),
+    "reparam_kl": (kernels.reparam_kl, "launches"),
+    "reparam_kl_bwd": (kernels.reparam_kl_bwd, "launches"),
+    "reparam_kl_sample": (kernels.reparam_kl_sample, "launches")}
+
+
+def all_counted(run):
+    """``run()`` with every kernel's count set to 0 just before and read
+    just after: (out, {record: launches}, ms on the host clock)."""
+    torch.cuda.synchronize()
+    for fn, attr in FRONT_COUNTERS.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, {k: getattr(fn, attr)
+                 for k, (fn, attr) in FRONT_COUNTERS.items()}, ms
+
+
+def only(counts, **want):
+    """``counts`` equal to ``want`` on the named kernels and 0 elsewhere."""
+    return all(counts[k] == want.get(k, 0) for k in counts)
+
+
+def train_launches(bn_layers, steps, epochs, n_val):
+    return {"bn_act_fwd": bn_layers * steps * epochs,
+            "bn_act_bwd": bn_layers * steps * epochs,
+            "reparam_kl": steps * epochs + n_val,
+            "reparam_kl_bwd": steps * epochs}
+
+
+def asha_launches(out, n_cal, bn_layers=6):
+    """K2/K3/K4/K6 launches of an ASHA run over the default space: each
+    rung trains each (latent_dim, batch_size) group of the trials that
+    reached it as one stacked run of (rung - previous rung) epochs, with
+    one validation an epoch."""
+    want, prev = dict.fromkeys(VAE_KERNELS, 0), 0
+    for target in out["rungs"]:
+        groups = {(tr["config"].get("latent_dim", 16),
+                   int(tr["config"].get("batch_size", 64)))
+                  for tr in out["trials"] if tr["epochs"] >= target}
+        for _, bs in groups:
+            steps = -(-n_cal // min(bs, n_cal))
+            for k, n in train_launches(bn_layers, steps, target - prev,
+                                       target - prev).items():
+                want[k] += n
+        prev = target
+    return want
+
+
+def f1_on_card(dev):
+    """Phase 20.1: fault F1.  cheese_like()'s float64 arrays, not cast, go
+    through SIMCA, fit_classes + predict_classes, train_vae,
+    train_vae_classes and ASHA in float32 with their exact launches; an
+    explicit float64 CUDA tensor is refused at the entry point.  Returns
+    {kernel record name: launches}."""
+    from ocm_tpu_torch import cli
+
+    x_tr, y_tr, x_ts, _ = synthetic.cheese_like()
+    check(x_tr.dtype == np.float64, f"cheese_like gave {x_tr.dtype}")
+    labels = sorted(int(c) for c in np.unique(y_tr))
+    launches = {}
+
+    def add(c):
+        for k, n in c.items():
+            launches[k] = launches.get(k, 0) + n
+
+    est = SIMCA(n_components=10, model_class=0, verbose=False)
+    _, c, _ = all_counted(lambda: est.fit(x_tr, y_tr).predict(x_ts))
+    check(only(c, t2q_scores_multiclass=1), f"F1 SIMCA launches {c}")
+    check(est._model[0].mean.dtype == torch.float32, "F1 SIMCA not f32")
+    add(c)
+    models = fit_classes(x_tr, y_tr, labels, 10)
+    (acc, dred, _, _), c, _ = all_counted(lambda: predict_classes(models,
+                                                                  x_ts))
+    check(only(c, t2q_scores_multiclass=1), f"F1 predict_classes {c}")
+    check(models.mean.dtype == dred.dtype == torch.float32
+          and acc.shape == (5, len(x_ts)),
+          f"F1 predict_classes {dred.dtype} {tuple(acc.shape)}")
+    add(c)
+    try:
+        predict_classes(models, torch.as_tensor(x_ts, device=dev))
+        refused = False
+    except ValueError as e:
+        refused = "K1" in str(e)
+    check(refused, "a float64 CUDA tensor was not refused by K1's entry")
+
+    splits_ = [cli._class_split(x_tr, y_tr, cls) for cls in labels]
+    cfg = vae_trainer.TrainConfig(epochs=2, batch_size=64)
+    x_cal, x_val = splits_[0]
+    r, c, _ = all_counted(lambda: vae_trainer.train_vae(
+        ConvVAE1D(**VAE_KW), x_cal, x_val, cfg, seed=0))
+    steps = -(-len(x_cal) // 64)
+    check(only(c, **train_launches(6, steps, 2, 2)),
+          f"F1 train_vae launches {c}")
+    check(r.bundle.spec_mean.dtype == torch.float32, "F1 train_vae not f32")
+    add(c)
+    r, c, _ = all_counted(lambda: sweep.train_vae_classes(
+        ConvVAE1D(**VAE_KW), [s[0] for s in splits_],
+        [s[1] for s in splits_], cfg, 0))
+    steps = -(-max(len(s[0]) for s in splits_) // 64)
+    check(only(c, **train_launches(6, steps, 2, 2)),
+          f"F1 train_vae_classes launches {c}")
+    check(r.bundle.spec_mean.dtype == torch.float32,
+          "F1 train_vae_classes not f32")
+    add(c)
+    out, c, _ = all_counted(lambda: sweep.asha_vae_search(
+        x_cal, x_val, n_trials=2, max_epochs=2, verbose=False))
+    want = asha_launches(out, len(x_cal))
+    check(only(c, **want) and want["bn_act_fwd"] > 0,
+          f"F1 ASHA launches {c} != {want}")
+    check(out["best_bundle"].spec_mean.dtype == torch.float32,
+          "F1 ASHA not f32")
+    add(c)
+    try:
+        vae_trainer.train_vae(ConvVAE1D(**VAE_KW),
+                              torch.as_tensor(x_cal, device=dev), x_val,
+                              cfg, seed=0)
+        refused = False
+    except ValueError as e:
+        refused = "K2" in str(e)
+    check(refused, "a float64 CUDA tensor was not refused by K2's entry")
+    print(json.dumps({"phase": "f1_on_card", "input_dtype": str(x_tr.dtype),
+                      "compute_dtype": "float32", "launches": launches}),
+          flush=True)
+    return launches
+
+
+def cli_call(argv, times, name):
+    """``cli.main(argv)`` in-process: its launches, its host-clock time
+    under ``name``; fails unless it returns 0.  What the command prints
+    goes to a buffer (its run dir holds the same)."""
+    import io
+
+    from ocm_tpu_torch import cli
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc, counts, ms = all_counted(lambda: cli.main(argv))
+    check(rc == 0, f"`{' '.join(argv)}` returned {rc}")
+    times[name] = ms
+    return counts
+
+
+def read_json(run_dir, name):
+    with open(os.path.join(run_dir, name)) as f:
+        return json.load(f)
+
+
+def model_limits(run_dir):
+    from ocm_tpu_torch.models.simca import load_simca_model
+
+    m = load_simca_model(os.path.join(run_dir, "simca_model.msgpack"),
+                         device="cpu")
+    return {"t2": m.t2_res.limit.double(), "q": m.q_res.limit.double(),
+            "d": m.d_limit.double()}
+
+
+def limits_rel(card_dir, cpu_dir):
+    a, b = model_limits(card_dir), model_limits(cpu_dir)
+    return max(((a[k] - b[k]).abs() / b[k].abs()).max().item() for k in a)
+
+
+def metrics_within(card, cpu, y, samples=2):
+    """Each class's sensitivity and specificity (x100) within ``samples``
+    samples of the CPU's."""
+    y = np.asarray(y)
+    worst = 0.0
+    for cls, m in cpu.items():
+        n_pos = int(np.sum(y == int(cls)))
+        for key, n in (("sensitivity", n_pos), ("specificity",
+                                                len(y) - n_pos)):
+            worst = max(worst, abs(card[cls][key] - m[key]) * n / 100.0)
+    return worst <= samples, worst
+
+
+def screen_accept(run_dir):
+    return np.load(os.path.join(run_dir, "predictions.npz"))["accept"]
+
+
+def capture_k1_operands(run):
+    """(x, mean, components, invcovT) of the first K1 launch that ``run()``
+    makes through ``models.simca`` (a SIMCA scorer's exact operands)."""
+    from ocm_tpu_torch.models import simca as simca_mod
+
+    seen, real = [], simca_mod.t2q_scores_multiclass
+
+    def recording(*args):
+        seen.append(args)
+        return real(*args)
+
+    simca_mod.t2q_scores_multiclass = recording
+    try:
+        run()
+    finally:
+        simca_mod.t2q_scores_multiclass = real
+    return seen[0]
+
+
+def screen_kernels_vs_plain(run_dir, x, screened, dev):
+    """K1 (f32 and bf16 x) and K8 at the operands a run dir's screens give
+    them, against their plain twins; each K1 path's decisions
+    (``screened``, the accepts its screen wrote, by store width) held
+    against the twin's too.  Returns {kernel record name: max abs error}."""
+    from ocm_tpu_torch import cli
+
+    model, meta = cli._load_simca_model(run_dir, dev)
+    models = model if model.mean.dim() == 2 else stack_models([model])
+    c, k, length = models.components.shape
+    tag = f"{os.path.basename(run_dir)} L={length} C={c} k={k}"
+    errs = {}
+    for sd, rec in ((None, "t2q_scores_multiclass"),
+                    ("bf16", "t2q_scores_multiclass_bf16")):
+        scorer = cli._build_scorer(run_dir, store_dtype=sd, device=dev)[0]
+        xk, mean, _, _ = capture_k1_operands(lambda: scorer.score(x))
+        check(xk.dtype == (torch.bfloat16 if sd else torch.float32),
+              f"{tag}: K1 read {xk.dtype} under --store-dtype {sd}")
+        # the chunk's pad rows repeat its last row, and so its decisions
+        acc = screened[sd or "f32"].reshape(len(x), c)
+        pad = np.repeat(acc[-1:], xk.shape[0] - len(x), axis=0)
+        path = torch.as_tensor(np.concatenate([acc, pad]).T, device=dev)
+        errs[rec] = compare_kernel(
+            f"{tag} N={xk.shape[0]} {sd or 'f32'}", xk,
+            models._replace(mean=mean), meta["decision_type"],
+            path_accept=path)
+    scorer = cli._build_scorer(run_dir, store_dtype="int8", device=dev)[0]
+    xq, w = capture_k8_operands(lambda: scorer.score(x))
+    errs["int8_gemm_s32"] = k8_vs_plain(f"{tag} N={xq.shape[0]} int8", xq, w)
+    return errs
+
+
+def simca_commands(tmp, times, dev):
+    """Phase 20.2: the SIMCA commands on the card at cheese width, each
+    f32 run dir screened in f32, bf16 and int8 with exact launches, the
+    bf16 and int8 screens held to phase 16's contract against the f32
+    screen, K1/bf16 K1/K8 against their twins at the screens' operands,
+    and the card against the same commands with --platform cpu.  Returns
+    ({kernel record name: launches counted on the path}, {record: max
+    abs error})."""
+    from ocm_tpu_torch import cli
+
+    _, _, x_ts, y_ts = cli.load_dataset(None)
+    chunks = -(-len(x_ts) // 8192)
+    runs = {"simca": ["simca", "--quiet"],
+            "simca_all": ["simca", "--all-classes", "--quiet"],
+            "cv": ["cv", "--refit"]}
+    launches, report, errs = {}, {}, {}
+
+    def add(c):
+        for k, n in c.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for name, argv in runs.items():
+        for plat in ("cuda", "cpu"):
+            c = cli_call(argv + ["--platform", plat, "--out-dir",
+                                 f"{tmp}/{name}_{plat}"], times,
+                         f"{name}_{plat}")
+            if plat == "cuda":
+                want = 0 if name == "cv" else 1
+                check(only(c, t2q_scores_multiclass=want),
+                      f"{name} launches {c}")
+                add(c)
+    for plat in ("cuda", "cpu"):
+        mom = f"{tmp}/mom_{plat}.msgpack"
+        for split in ("train", "test"):
+            c = cli_call(["stream-update", "--moments", mom, "--split", split,
+                          "--target-class", "0", "--platform", plat], times,
+                         f"stream_update_{split}_{plat}")
+            check(only(c), f"stream-update launches {c}")
+        c = cli_call(["stream-fit", "--moments", mom, "--platform", plat,
+                      "--out-dir", f"{tmp}/stream_{plat}"], times,
+                     f"stream_fit_{plat}")
+        check(only(c), f"stream-fit launches {c}")
+        c = cli_call(["plsda", "--platform", plat, "--out-dir",
+                      f"{tmp}/plsda_{plat}"], times, f"plsda_{plat}")
+        check(only(c), f"plsda launches {c}")
+    for name in ("simca", "simca_all", "cv", "stream"):
+        report[name] = {"limits_rel_vs_cpu": limits_rel(
+            f"{tmp}/{name}_cuda", f"{tmp}/{name}_cpu")}
+        check(report[name]["limits_rel_vs_cpu"] <= 1e-3,
+              f"{name}: limits {report[name]} off the CPU f64 fit")
+        for plat in ("cuda", "cpu"):
+            c = cli_call(["screen", "--model-dir", f"{tmp}/{name}_{plat}",
+                          "--platform", plat, "--out-dir",
+                          f"{tmp}/scr_{name}_{plat}"], times,
+                         f"screen_{name}_{plat}")
+            if plat == "cuda":
+                check(only(c, t2q_scores_multiclass=chunks),
+                      f"screen {name} f32 launches {c}")
+                add(c)
+        card = read_json(f"{tmp}/scr_{name}_cuda", "metrics.json")
+        cpu = read_json(f"{tmp}/scr_{name}_cpu", "metrics.json")
+        check(all(np.isfinite(v) for m in card.values() for v in m.values()),
+              f"screen {name}: metrics not finite {card}")
+        ok, worst = metrics_within(card, cpu, y_ts)
+        agree = float(np.mean(screen_accept(f"{tmp}/scr_{name}_cuda")
+                              == screen_accept(f"{tmp}/scr_{name}_cpu")))
+        report[name].update(worst_samples=worst, accept_agreement=agree)
+        check(ok, f"screen {name}: card metrics {worst} samples off CPU")
+        check(agree >= 0.999, f"screen {name}: accepts {agree} vs CPU")
+        f32 = dict(np.load(f"{tmp}/scr_{name}_cuda/predictions.npz"))
+        screened = {"f32": f32["accept"]}
+        for sd, want in (("bf16", {"t2q_scores_multiclass_bf16": chunks}),
+                         ("int8", {"int8_gemm_s32": chunks})):
+            c = cli_call(["screen", "--model-dir", f"{tmp}/{name}_cuda",
+                          "--store-dtype", sd, "--out-dir",
+                          f"{tmp}/scr_{name}_{sd}"], times,
+                         f"screen_{name}_{sd}")
+            check(only(c, **want), f"screen {name} {sd} launches {c}")
+            add(c)
+            m = read_json(f"{tmp}/scr_{name}_{sd}", "metrics.json")
+            check(all(np.isfinite(v) for mm in m.values()
+                      for v in mm.values()), f"{name} {sd} metrics {m}")
+            got = dict(np.load(f"{tmp}/scr_{name}_{sd}/predictions.npz"))
+            screened[sd] = got["accept"]
+            # phase 16's contract for the reduced store widths
+            agree, dred = agreement(got, f32)
+            report[name][f"{sd}_vs_f32"] = {"accept": agree,
+                                            "dred_of_max": dred}
+            check(agree >= 0.995, f"screen {name} {sd}: accepts vs f32 "
+                  f"{agree} < 0.995")
+            check(dred <= 3e-2, f"screen {name} {sd}: dred vs f32 {dred} "
+                  "> 3e-2 of max")
+        for k, e in screen_kernels_vs_plain(f"{tmp}/{name}_cuda", x_ts,
+                                            screened, dev).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+    for name in ("simca", "simca_all"):
+        card, cpu = (read_json(f"{tmp}/{name}_{p}", "metrics.json")
+                     for p in ("cuda", "cpu"))
+        check(all(np.isfinite(v) for m in card.values() for v in m.values()
+                  if isinstance(v, float)), f"{name} metrics {card}")
+        ok, worst = metrics_within(card, cpu, y_ts)
+        report[name]["command_worst_samples"] = worst
+        check(ok, f"{name}: its metrics {worst} samples off the CPU's")
+    cv_card, cv_cpu = (read_json(f"{tmp}/cv_{p}", "cv.json")
+                       for p in ("cuda", "cpu"))
+    check(all(np.isfinite(cv_card[k]).all() for k in ("spec", "sens", "eff")),
+          f"cv.json not finite {cv_card}")
+    report["cv"]["best_lv"] = [cv_card["best_lv"], cv_cpu["best_lv"]]
+    pl_card, pl_cpu = (read_json(f"{tmp}/plsda_{p}", "metrics.json")
+                       for p in ("cuda", "cpu"))
+    report["plsda"] = {"best_k": [pl_card["best_n_components"],
+                                  pl_cpu["best_n_components"]],
+                       "f1_test": [pl_card["f1_test"], pl_cpu["f1_test"]]}
+    check(np.isfinite(pl_card["f1_test"])
+          and pl_card["best_n_components"] == pl_cpu["best_n_components"]
+          and abs(pl_card["f1_test"] - pl_cpu["f1_test"]) <= 0.01,
+          f"plsda card vs CPU {report['plsda']}")
+    print(json.dumps({"phase": "front_doors_simca", "vs_cpu_f64": report,
+                      "n_test": len(x_ts), "launches": launches,
+                      "max_abs_err": errs}), flush=True)
+    return launches, errs
+
+
+def vae_commands(tmp, times):
+    """Phase 20.3: the VAE commands at the CLI's defaults (the entry model
+    ConvVAE1D(501, 16), 100 epochs), their screens, hpo and export-torch."""
+    from ocm_tpu_torch import cli
+
+    x_tr, y_tr, x_ts, _ = cli.load_dataset(None)
+    labels = sorted(int(c) for c in np.unique(y_tr))
+    n_cal = len(cli._class_split(x_tr, y_tr, 0)[0])
+    n_max = max(len(cli._class_split(x_tr, y_tr, c)[0]) for c in labels)
+    launches = dict.fromkeys(VAE_KERNELS, 0)
+    vae_dir, all_dir = f"{tmp}/vae", f"{tmp}/vae_all"
+    c = cli_call(["train-vae", "--out-dir", vae_dir], times, "train_vae")
+    want = train_launches(6, -(-n_cal // 64), 100, 100)
+    check(only(c, **want), f"train-vae launches {c} != {want}")
+    for k in VAE_KERNELS:
+        launches[k] += c[k]
+    losses = read_json(vae_dir, "losses.json")
+    tl = np.asarray(losses["train_losses"])
+    check(np.isfinite(tl).all() and np.isfinite(losses["val_losses"]).all()
+          and tl[-1] < tl[0], f"train-vae losses {tl[0]} -> {tl[-1]}")
+    c = cli_call(["train-vae", "--all-classes", "--out-dir", all_dir], times,
+                 "train_vae_all_classes")
+    want = train_launches(6, -(-n_max // 64), 100, 100)
+    check(only(c, **want), f"train-vae --all-classes launches {c} != {want}")
+    for k in VAE_KERNELS:
+        launches[k] += c[k]
+    for run_dir in (vae_dir, all_dir):
+        m = read_json(run_dir, "metrics.json")
+        flat = [v for var in m.values() for mm in (
+            var.values() if isinstance(next(iter(var.values())), dict)
+            else [var]) for v in mm.values()]
+        check(all(np.isfinite(v) for v in flat), f"{run_dir} metrics")
+    for run_dir, tag in ((vae_dir, "vae"), (all_dir, "vae_all")):
+        for extra in (["--variant", "d2"], ["--variant", "d2_q"],
+                      ["--variant", "f"], ["--variant", "full"],
+                      ["--variant", "vaesimca"],
+                      ["--variant", "d2", "--store-dtype", "bf16"]):
+            name = f"screen_{tag}_{'_'.join(extra[1::2])}"
+            c = cli_call(["screen", "--model-dir", run_dir, "--out-dir",
+                          f"{tmp}/{name}"] + extra, times, name)
+            check(only(c), f"{name} launches {c} (no kernel, no K5)")
+    hpo_dir, searched, real_asha = f"{tmp}/hpo", [], sweep.asha_vae_search
+
+    def recording(*args, **kwargs):
+        searched.append(real_asha(*args, **kwargs))
+        return searched[-1]
+
+    sweep.asha_vae_search = recording     # the search's rungs and trials
+    try:
+        c = cli_call(["hpo", "--algo", "asha", "--quiet", "--out-dir",
+                      hpo_dir], times, "hpo_asha")
+    finally:
+        sweep.asha_vae_search = real_asha
+    want = asha_launches(searched[0], n_cal)
+    check(len(searched) == 1 and want["bn_act_fwd"] > 0 and only(c, **want),
+          f"hpo launches {c} != {want}")
+    check(np.isfinite(read_json(hpo_dir, "params.json")["best_value"]),
+          "hpo best value not finite")
+    for k in VAE_KERNELS:
+        launches[k] += c[k]
+    pth = f"{tmp}/model.pth"
+    c = cli_call(["export-torch", "--model-dir", vae_dir, "--out", pth],
+                 times, "export_torch")
+    check(only(c), f"export-torch launches {c}")
+    model = cli._build_vae(read_json(vae_dir, "params.json")["arch"])
+    t0 = time.perf_counter()
+    got = VAEScorer.from_torch_checkpoint(pth, model, variant="d2").score(
+        x_ts)
+    times["from_torch_checkpoint_screen"] = 1e3 * (time.perf_counter() - t0)
+    ref = np.load(f"{tmp}/screen_vae_d2/predictions.npz")
+    check(set(got) == set(ref.files) and all(
+        np.array_equal(got[k], ref[k]) for k in got),
+        "the .pth screen differs from the run dir's screen")
+    print(json.dumps({"phase": "front_doors_vae", "n_cal": n_cal,
+                      "n_max": n_max, "launches": launches,
+                      "final_train_loss": float(tl[-1]),
+                      "best_epoch": losses["best_epoch"]}), flush=True)
+    return launches, vae_dir
+
+
+def post(srv, body, ctype, path="/score", accept=None):
+    import urllib.request
+
+    headers = {"Content-Type": ctype, **({"Accept": accept} if accept
+                                          else {})}
+    req = urllib.request.Request(f"http://{srv.host}:{srv.port}{path}",
+                                 data=body, headers=headers)
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+
+def npz_bytes(x):
+    import io
+
+    buf = io.BytesIO()
+    np.savez(buf, x=x)
+    return buf.getvalue()
+
+
+def npz_post(srv, x):
+    import io
+
+    status, ctype, body = post(srv, npz_bytes(x), "application/x-npz",
+                               accept="application/x-npz")
+    check(status == 200 and ctype == "application/x-npz",
+          f"npz request {status} {ctype}")
+    with np.load(io.BytesIO(body)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def json_post(srv, x, path="/score"):
+    body = json.dumps({"x": np.asarray(x).tolist()}).encode()
+    status, _, out = post(srv, body, "application/json", path)
+    check(status == 200, f"JSON request {status}")
+    return json.loads(out)
+
+
+def quantiles_ms(samples):
+    s = sorted(samples)
+    return {"p50_ms": s[len(s) // 2],
+            "p99_ms": s[min(len(s) - 1, int(math.ceil(0.99 * len(s))) - 1)]}
+
+
+def server_phase(tmp, vae_dir, times, card):
+    """Phase 20.4: the HTTP server over the stacked SIMCA run dir.
+    Returns (its figures, the 65,536-spectrum request's launches)."""
+    import threading
+    import urllib.error
+
+    from ocm_tpu_torch import cli
+    from ocm_tpu_torch.server import ScoringServer
+
+    args = cli.build_parser().parse_args(
+        ["serve", "--model-dir", f"{tmp}/simca_all_cuda", "--port", "0"])
+    args.device = torch.device("cuda")
+    t0 = time.perf_counter()
+    srv = cli.make_server(args)
+    srv.warmup()
+    times["server_build_and_warmup"] = 1e3 * (time.perf_counter() - t0)
+    srv.start()
+    report = {}
+    try:
+        _, _, x_ts, _ = cli.load_dataset(None)
+        rng = np.random.default_rng(20)
+        big = (x_ts[rng.integers(0, len(x_ts), 65536)]
+               + rng.normal(0, 0.01, (65536, x_ts.shape[1]))).astype(
+                   np.float32)
+        got, launches, ms = all_counted(lambda: npz_post(srv, big))
+        check(only(launches, t2q_scores_multiclass=8),
+              f"65,536-spectrum request launches {launches}")
+        report["npz_65536_ms"] = ms
+        report["npz_65536_spectra_per_s"] = 65536 / (ms / 1e3)
+        direct = srv.scorer.score(big)
+        check(set(got) == set(direct) and all(
+            np.array_equal(got[k], direct[k]) for k in got),
+            "the server's 65,536-spectrum answer differs from score()")
+        small = big[:16]
+        out = json_post(srv, small)
+        ref = srv.scorer.score(small)
+        check(np.array_equal(np.asarray(out["accept"]), ref["accept"]),
+              "JSON answer differs from score()")
+        results, errors = [None] * 8, []
+
+        def worker(i):
+            try:
+                results[i] = json_post(srv, small)["accept"]
+            except Exception as e:      # reported by the check below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        check(not errors and all(np.array_equal(np.asarray(r),
+                                                ref["accept"])
+                                 for r in results),
+              f"8 concurrent posts: {errors}")
+        lat = []
+        for i in range(50):
+            t0 = time.perf_counter()
+            json_post(srv, big[i:i + 1])
+            lat.append(1e3 * (time.perf_counter() - t0))
+        report["json_1_spectrum"] = quantiles_ms(lat)
+        mid = big[:8192]
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            npz_post(srv, mid)
+            lat.append(1e3 * (time.perf_counter() - t0))
+        report["npz_8192"] = quantiles_ms(lat)
+        report["npz_8192_spectra_per_s"] = 8192 / (
+            report["npz_8192"]["p50_ms"] / 1e3)
+    finally:
+        srv.stop()
+
+    # 429: max_queue=1 while a request holds the device lock
+    one = ScoringServer(srv.scorer, srv.info, max_queue=1,
+                        expected_length=srv.expected_length).start()
+    codes = []
+    try:
+        with one._lock:
+            holder = threading.Thread(target=lambda: codes.append(
+                len(json_post(one, big[:2])["accept"]) and 200))
+            holder.start()
+            deadline = time.time() + 30
+            while one._slots._value and time.time() < deadline:
+                time.sleep(0.01)
+            try:
+                json_post(one, big[:2])
+                codes.append("no 429")
+            except urllib.error.HTTPError as e:
+                codes.append(e.code)
+                e.close()
+        holder.join(timeout=120)
+    finally:
+        one.stop()
+    check(sorted(map(str, codes)) == ["200", "429"], f"429 check {codes}")
+
+    # /reload onto the train-vae run dir, then a VAE score
+    srv2 = cli.make_server(args).start()
+    try:
+        status, _, body = post(srv2, json.dumps({"model_dir": vae_dir})
+                               .encode(), "application/json", "/reload")
+        info = json.loads(body)["info"]
+        check(status == 200 and info["kind"] == "vae",
+              f"/reload to the VAE run dir: {status} {info}")
+        out = json_post(srv2, x_ts[:5])
+        check(len(out["accept"]) == 5 and np.isfinite(out["d2"]).all(),
+              f"VAE score after /reload {out}")
+    finally:
+        srv2.stop()
+    print(json.dumps({"phase": "server", "card": card, **report}),
+          flush=True)
+    return report, launches
+
+
+def front_door_phases(dev, card):
+    """Phase 20, the front doors as a user drives them: F1 on the card,
+    the SIMCA and VAE commands in-process through ``cli.main``, the HTTP
+    server, and ``python -m ocm_tpu_torch info`` in a subprocess.  Returns
+    ({kernel record name: launches made on its path}, {record: max abs
+    error against its twin at this phase's operands})."""
+    t_phase, times = time.perf_counter(), {}
+    t0 = time.perf_counter()
+    launches = f1_on_card(dev)
+    times["f1_on_card"] = 1e3 * (time.perf_counter() - t0)
+    r = subprocess.run([sys.executable, "-m", "ocm_tpu_torch", "info"],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0 and "kernel library built: True" in r.stdout
+          and "tf32: matmul=False cudnn=False" in r.stdout,
+          f"python -m ocm_tpu_torch info: {r.returncode} {r.stdout}"
+          f"{r.stderr}")
+    print(r.stdout.strip(), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        (simca, errs), (vae, vae_dir) = (simca_commands(tmp, times, dev),
+                                         vae_commands(tmp, times))
+        for k, n in (*simca.items(), *vae.items()):
+            launches[k] = launches.get(k, 0) + n
+        server, k1 = server_phase(tmp, vae_dir, times, card)
+        for k, n in k1.items():
+            launches[k] = launches.get(k, 0) + n
+    print(json.dumps({"phase": "front_door_timings", "card": card,
+                      "seconds": time.perf_counter() - t_phase,
+                      "command_ms": times, "server": server}), flush=True)
+    return launches, errs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -3553,6 +4223,14 @@ def main(argv=None) -> int:
         rec = next(r for r in records if r["name"] == kernel)
         rec["launches"] += n
         rec["max_abs_err"] = max(rec["max_abs_err"], errs[kernel])
+    # 20. the front doors: F1, the CLI, the server; its launches and its
+    #     kernels' errors at the screens' operands go into their records
+    launches, errs = front_door_phases(dev, card)
+    for kernel, n in launches.items():
+        next(r for r in records if r["name"] == kernel)["launches"] += n
+    for kernel, e in errs.items():
+        rec = next(r for r in records if r["name"] == kernel)
+        rec["max_abs_err"] = max(rec["max_abs_err"], e)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,4 +24,6 @@ threads that decide at the same time all see it.
 
 import torch
 
+__version__ = "0.1.0"
+
 torch.backends.cudnn.deterministic = True

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ocm_tpu_torch._device import resolve_device
+from ocm_tpu_torch._device import as_tensor, require_f32, resolve_device
 from ocm_tpu_torch.models.vae import (ConvVAE1D, vae_state_dict_from_numpy,
                                       vae_state_dict_to_numpy)
 from ocm_tpu_torch.utils import msgpack_io
@@ -134,6 +134,9 @@ def forward(model: ConvVAE1D, bundle: OCMBundle, x, rng=None, eps=None):
     if (rng is None) == (eps is None):
         raise ValueError("pass exactly one of rng (a CPU torch.Generator) "
                          "or eps (the noise)")
+    require_f32(bundle.spec_mean.dtype, bundle.spec_mean.device,
+                "kernel K4/K5 (ops.kernels.fused_reparam_kl, "
+                "reparam_kl_sample)", "the sampled VAE forward")
     noise = dict(seed=draw_seed(rng)) if eps is None \
         else dict(eps=_on_bundle(bundle, eps))
     x_rec_std, mu, logvar = model(standardize(bundle, x), **noise)
@@ -156,38 +159,77 @@ def spectral_stats(x_train):
     return x.mean(axis=0), x.std(axis=0) + 1e-12
 
 
+def _take(tree, c):
+    """Class ``c`` of a nested mapping of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _take(v, c) for k, v in tree.items()}
+    return np.asarray(tree)[c]
+
+
+def _stack_numpy(trees):
+    """Stack matching nested mappings of numpy arrays on a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_numpy([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
 def ocm_bundle_from_numpy(tree, model: ConvVAE1D, device=None) -> OCMBundle:
     """A bundle of ``ocm_tpu`` as numpy (its fields as a mapping, or the
     bundle itself: flax ``params``/``batch_stats`` trees plus the decision
-    arrays) as this package's bundle on ``device`` (CUDA unless given)."""
+    arrays) as this package's bundle on ``device`` (CUDA unless given), in
+    one float dtype, ``spec_mean``'s (float32 on CUDA).  A class-stacked
+    bundle (a leading class axis on every leaf, ``latent_mean`` (C, k))
+    comes back stacked as ``stack_bundles`` stacks."""
     tree = tree._asdict() if hasattr(tree, "_asdict") else dict(tree)
     device = resolve_device(device)
+    if np.ndim(tree["latent_mean"]) == 2:
+        return stack_bundles([
+            ocm_bundle_from_numpy(_take(tree, c), model, device)
+            for c in range(np.shape(tree["latent_mean"])[0])])
     state = vae_state_dict_from_numpy(tree["params"], tree["batch_stats"],
                                       model)
-    rest = {f: torch.as_tensor(np.array(tree[f]), device=device)
+    rest = {f: as_tensor(np.array(tree[f]), device)
             for f in OCMBundle._fields if f != "state_dict"}
-    return OCMBundle(state_dict={k: v.to(device) for k, v in state.items()},
-                     **rest)
+    # one float width for the whole bundle, spec_mean's (the JAX package
+    # may store float32 weights beside float64 statistics)
+    dt = rest["spec_mean"].dtype
+
+    def cast(t):
+        return t.to(dt) if t.is_floating_point() else t
+
+    return OCMBundle(
+        state_dict={k: cast(as_tensor(v, device)) for k, v in state.items()},
+        **{f: cast(t) for f, t in rest.items()})
+
+
+def _numpy_tree(bundle: OCMBundle, model: ConvVAE1D) -> dict:
+    """One class's bundle as the JAX package's tree of numpy arrays."""
+    params, batch_stats = vae_state_dict_to_numpy(bundle.state_dict, model)
+    rest = {f: getattr(bundle, f).detach().cpu().numpy()
+            for f in OCMBundle._fields if f != "state_dict"}
+    return {"params": params, "batch_stats": batch_stats, **rest}
 
 
 def save_bundle(path, bundle: OCMBundle, model: ConvVAE1D) -> None:
     """Write ``bundle`` (of the architecture ``model``) as the JAX
     package's ``save_bundle`` does: one msgpack file of its flax
     ``params``/``batch_stats`` trees (``vae_state_dict_to_numpy``) and
-    the decision arrays, in its field order.  The format holds no
-    BatchNorm step counter: ``num_batches_tracked``, which the eval forward
-    does not read, loads as 0."""
-    params, batch_stats = vae_state_dict_to_numpy(bundle.state_dict, model)
-    rest = {f: getattr(bundle, f).detach().cpu().numpy()
-            for f in OCMBundle._fields if f != "state_dict"}
-    msgpack_io.save(path, {"params": params, "batch_stats": batch_stats,
-                           **rest}, sort_keys=False)
+    the decision arrays, in its field order; a stacked bundle with a
+    leading class axis on every leaf.  The format holds no BatchNorm step
+    counter: ``num_batches_tracked``, which the eval forward does not
+    read, loads as 0."""
+    if bundle.latent_mean.dim() == 2:
+        tree = _stack_numpy([_numpy_tree(class_slice(bundle, c), model)
+                             for c in range(bundle.latent_mean.shape[0])])
+    else:
+        tree = _numpy_tree(bundle, model)
+    msgpack_io.save(path, tree, sort_keys=False)
 
 
 def load_bundle(path, model: ConvVAE1D, device=None) -> OCMBundle:
-    """A bundle written by either package's ``save_bundle``, for the
-    architecture ``model`` (which takes the place of the JAX package's
-    template), on ``device`` (CUDA unless given)."""
+    """A bundle written by either package's ``save_bundle``, single or
+    class-stacked, for the architecture ``model`` (which takes the place of
+    the JAX package's template), on ``device`` (CUDA unless given)."""
     return ocm_bundle_from_numpy(msgpack_io.load(path), model, device)
 
 

@@ -20,7 +20,8 @@ confusion matrix, and the discriminant-vector back-projection
 
 Products run in full f32 (no TF32): reduced-precision passes change the
 later components.  Numpy input goes to ``device`` (CUDA unless given) in
-its own dtype; tensors stay where they are.
+its own dtype, float64 becoming float32 on CUDA (``_device.as_tensor``);
+tensors stay where they are.
 """
 
 from __future__ import annotations

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ocm_tpu_torch._device import as_tensor, resolve_device
+from ocm_tpu_torch._device import as_tensor, require_f32, resolve_device
 from ocm_tpu_torch.ops.kernels import t2q_scores_multiclass
 from ocm_tpu_torch.ops.linalg import (cov, deflated_thetas, eigh_desc_signed,
                                       full_f32_matmul, pca_fit, pca_topk_cov,
@@ -44,6 +44,9 @@ from ocm_tpu_torch.ops.special import chi2_ppf
 from ocm_tpu_torch.stats import limits as L
 from ocm_tpu_torch.stats.metrics import conformity_metrics
 from ocm_tpu_torch.utils import msgpack_io
+
+# what a float64 request on CUDA is refused for (``_device.require_f32``)
+K1 = "kernel K1 (ops.kernels.t2q_scores_multiclass, csrc/t2q_scores.cu)"
 
 
 class SIMCAModel(NamedTuple):
@@ -77,6 +80,7 @@ def fit_simca(x_cls, n_components: int, decision_type: str = "alt",
     full spectrum for 'svd' and the top-(k + oversample) one for 'rsvd'.
     """
     x = as_tensor(x_cls, device, dtype)
+    require_f32(x.dtype, x.device, K1, "fit_simca")
     if x.dim() not in (2, 3):
         raise ValueError(f"x_cls must be (n, L) or (C, n, L), got "
                          f"{tuple(x.shape)}")
@@ -123,7 +127,11 @@ def fit_simca(x_cls, n_components: int, decision_type: str = "alt",
 
 def _on_model(models: SIMCAModel, x):
     """``x`` as a tensor on the models' device, in their dtype; a bf16
-    tensor stays bf16 (the kernel reads it at half width)."""
+    tensor stays bf16 (the kernel reads it at half width).  Float64 models
+    or a float64 tensor on CUDA are refused (K1 takes float32)."""
+    require_f32(models.mean.dtype, models.mean.device, K1, "SIMCA scoring")
+    if isinstance(x, torch.Tensor) and x.is_cuda:
+        require_f32(x.dtype, x.device, K1, "SIMCA scoring")
     if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
         return x.to(models.mean.device)
     return torch.as_tensor(x, dtype=models.mean.dtype,
@@ -422,6 +430,7 @@ def fit_simca_masked(x, w, n_components: int, decision_type: str = "alt",
     rows; ``n_samples`` is each fit's count.
     """
     x = as_tensor(x, device)
+    require_f32(x.dtype, x.device, K1, "fit_simca_masked")
     w = torch.as_tensor(w, device=x.device)
     if not 0 < n_components <= min(x.shape[-2:]):
         # the shape bound only; callers check each class's count
@@ -645,15 +654,16 @@ def simca_model_to_numpy(model: SIMCAModel) -> dict:
 
 def simca_model_from_numpy(tree: dict, device=None) -> SIMCAModel:
     """Inverse of ``simca_model_to_numpy``: a model fitted by either package
-    (numpy arrays, ``device='cuda'`` unless given) scores identically here."""
+    (numpy arrays, ``device='cuda'`` unless given) scores identically here;
+    a float64 model becomes float32 on CUDA (``_device.as_tensor``)."""
     device = resolve_device(device)
     kwargs = {}
     for f in SIMCAModel._fields:
         v = tree[f]
-        kwargs[f] = (L.LimitResult(**{k: torch.as_tensor(np.asarray(a), device=device)
+        kwargs[f] = (L.LimitResult(**{k: as_tensor(np.asarray(a), device)
                                       for k, a in v.items()})
                      if isinstance(v, dict)
-                     else torch.as_tensor(np.asarray(v), device=device))
+                     else as_tensor(np.asarray(v), device))
     return SIMCAModel(**kwargs)
 
 

@@ -167,14 +167,15 @@ def save_moments(path, mom: SpectraMoments) -> None:
 
 def load_moments(path, length=None, device=None) -> SpectraMoments:
     """A statistic written by either package's ``save_moments``, on
-    ``device`` (CUDA unless given).  ``length``, if given, is checked."""
+    ``device`` (CUDA unless given; a float64 statistic becomes float32
+    there).  ``length``, if given, is checked."""
     state = msgpack_io.load(path)
     stored = state["mean"].shape[-1]
     if length is not None and stored != length:
         raise ValueError(f"stored statistic is for L={stored} spectra, "
                          f"expected L={length}")
     device = resolve_device(device)
-    return SpectraMoments(*(torch.as_tensor(state[f], device=device)
+    return SpectraMoments(*(as_tensor(state[f], device)
                             for f in SpectraMoments._fields))
 
 

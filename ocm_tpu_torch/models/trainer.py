@@ -31,7 +31,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ocm_tpu_torch._device import resolve_device
+from ocm_tpu_torch._device import require_f32, resolve_device, target_dtype
 from ocm_tpu_torch.models.bundle import OCMBundle, new_bundle, spectral_stats
 from ocm_tpu_torch.models.vae import ConvVAE1D, recon_loss
 
@@ -130,11 +130,20 @@ def make_eval_loss(model: ConvVAE1D, cfg: TrainConfig, spec=None):
     return eval_loss
 
 
-def _dtype_of(x) -> torch.dtype:
-    if isinstance(x, torch.Tensor):
-        return torch.float64 if x.dtype == torch.float64 else torch.float32
-    return torch.float64 if np.asarray(x).dtype == np.float64 \
-        else torch.float32
+# what a float64 request on CUDA is refused for (``_device.require_f32``)
+K2 = "kernel K2 (ops.bn.fused_bn_act, csrc/bn_act.cu)"
+
+
+def _dtype_of(x, device, entry: str = "train_vae") -> torch.dtype:
+    """A training run's dtype on ``device``: float64 for float64 data that
+    stays float64 there (the CPU, or a float64 CUDA tensor, which is
+    refused: K2-K6 take float32), else float32.  Float64 host data bound
+    for CUDA trains in float32 (``_device.target_dtype``)."""
+    own = x.dtype if isinstance(x, torch.Tensor) else np.asarray(x).dtype
+    dtype = target_dtype(x, device) or (
+        torch.float64 if own in (torch.float64, np.float64) else torch.float32)
+    require_f32(dtype, device, K2, entry)
+    return dtype
 
 
 def train_vae(model: ConvVAE1D, x_cal, x_val, cfg: TrainConfig, seed: int,
@@ -146,13 +155,15 @@ def train_vae(model: ConvVAE1D, x_cal, x_val, cfg: TrainConfig, seed: int,
     ``x_cal``/``x_val`` are raw spectra (numpy or tensors); standardization
     stats come from the calibration set unless passed.  The run goes to
     ``device``, else the device of a tensor ``x_cal``, else CUDA; it
-    computes in float64 for float64 inputs, else float32.  It starts from
+    computes in float64 for float64 inputs on the CPU, else float32
+    (float64 host data on CUDA trains in float32; a float64 CUDA tensor
+    raises ``ValueError``).  It starts from
     the model's own weights, or from ``init_state = (state_dict,
     opt_state_dict or None)`` of an earlier result; ``epoch_offset`` is the
     number of epochs already run, for resuming the same random streams.
     """
     device = resolve_device(device, x_cal)
-    dtype = _dtype_of(x_cal)
+    dtype = _dtype_of(x_cal, device)
     mean, std = spectral_stats(x_cal) if spec_stats is None else spec_stats
     mean = torch.as_tensor(mean, dtype=dtype, device=device)
     std = torch.as_tensor(std, dtype=dtype, device=device)

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ocm_tpu_torch._device import resolve_device
+from ocm_tpu_torch._device import as_tensor, resolve_device
 from ocm_tpu_torch.models.bundle import (OCMBundle, bind, encode,
                                          inference_entry, standardize)
 from ocm_tpu_torch.models.vae import ConvVAE1D
@@ -186,7 +186,10 @@ def predict_vaesimca(model: ConvVAE1D, bundle: OCMBundle,
     """(accept, T2, Q) of new spectra."""
     mu, _ = encode(model, bundle, x)
     mu32 = mu.to(torch.promote_types(mu.dtype, torch.float32))
-    t2 = mahalanobis_sq(mu32, vs.latent_mean, vs.invcovT)
+    # as JAX promotes: float32 latent statistics (a JAX-written model
+    # file) against float64 latents compute in float64
+    t2 = mahalanobis_sq(mu32, vs.latent_mean.to(mu32.dtype),
+                        vs.invcovT.to(mu32.dtype))
     q = _latent_roundtrip_q(model, bundle, mu, compat_double_standardize)
     return reduced_d(vs, t2, q, decision_type) < vs.d_limit, t2, q
 
@@ -238,11 +241,11 @@ class VAESIMCA:
 
 def vaesimca_model_from_numpy(tree, device=None) -> VAESIMCAModel:
     """A ``VAESIMCAModel`` of either package as numpy (its fields as a
-    mapping, or the model itself) on ``device`` (CUDA unless given)."""
+    mapping, or the model itself) on ``device`` (CUDA unless given; float64
+    arrays become float32 there)."""
     tree = tree._asdict() if hasattr(tree, "_asdict") else dict(tree)
     device = resolve_device(device)
-    return VAESIMCAModel(**{f: torch.as_tensor(np.array(tree[f]),
-                                               device=device)
+    return VAESIMCAModel(**{f: as_tensor(np.array(tree[f]), device)
                             for f in VAESIMCAModel._fields})
 
 

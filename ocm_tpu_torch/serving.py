@@ -20,6 +20,7 @@ also with scorers deciding in several threads at once.
 bf16 residuals, int8 residuals with per-row scales, and raw camera counts
 (e.g. uint16) preprocessed on the device.  ``VAEScorer(compute_dtype=
 torch.bfloat16)`` is the reduced-precision twin of the VAE scorer.
+``VAEScorer.from_torch_checkpoint`` serves a reference ``.pth``.
 Sharding chunks over several cards (``mesh=``) comes with ROADMAP.md
 queue 1 item 14.
 """
@@ -445,9 +446,12 @@ class VAEScorer(_ChunkedScorer):
                                 device=self._device),)
 
     @classmethod
-    def from_torch_checkpoint(cls, path: str, model: ConvVAE1D, **kwargs):
-        """Serving a reference ``.pth`` directly comes with the port of
-        ``torch_import``, ROADMAP.md queue 1 item 15."""
-        raise NotImplementedError(
-            "VAEScorer.from_torch_checkpoint comes with the port of "
-            "models/torch_import.py, ROADMAP.md queue 1 item 15")
+    def from_torch_checkpoint(cls, path: str, model: ConvVAE1D, device=None,
+                              **kwargs) -> "VAEScorer":
+        """Serve a reference-trained ``.pth`` directly
+        (``models.torch_import.load_torch_checkpoint`` onto ``device``,
+        CUDA unless given)."""
+        from ocm_tpu_torch.models.torch_import import load_torch_checkpoint
+
+        return cls(model, load_torch_checkpoint(path, model, device),
+                   **kwargs)

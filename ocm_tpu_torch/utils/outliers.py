@@ -51,8 +51,9 @@ def mahalanobis_outlier_mask(x_proc, n_components: int = 10,
     the device (pass the JAX package's draw to replay it).  Signs and
     rotations within the subspace do not change a Mahalanobis distance.
 
-    Numpy input goes to ``device`` (CUDA unless given) in its own dtype; a
-    tensor stays where it is.  Returns tensors on that device.
+    Numpy input goes to ``device`` (CUDA unless given) in its own dtype,
+    float64 becoming float32 on CUDA (``_device.as_tensor``); a tensor
+    stays where it is.  Returns tensors on that device.
     """
     if solver not in ("svd", "rsvd"):
         raise ValueError(f"unknown solver {solver!r}; expected 'svd' or"

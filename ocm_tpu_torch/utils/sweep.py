@@ -268,7 +268,7 @@ def sweep_prep(x_cal, x_val, lrs, weight_decays, betas, epochs: int,
     if len(cfg_seeds) != n_cfg:
         raise ValueError(f"{len(cfg_seeds)} cfg_seeds for {n_cfg} configs")
     device = resolve_device(device, x_cal)
-    dtype = _dtype_of(x_cal)
+    dtype = _dtype_of(x_cal, device, "train_vae_vmapped")
     mean, std = spectral_stats(x_cal) if spec_stats is None else spec_stats
     mean = torch.as_tensor(mean, dtype=dtype, device=device)
     std = torch.as_tensor(std, dtype=dtype, device=device)
@@ -324,7 +324,7 @@ def train_vae_vmapped(model: ConvVAE1D, x_cal, x_val, lrs, weight_decays,
     result and ``epoch_offset`` (its epochs) continue every config's
     weights, Adam state and streams.  The run goes to ``device``, else the
     device of a tensor ``x_cal``, else CUDA, in float64 for float64 inputs
-    and float32 otherwise.
+    on the CPU and float32 otherwise (``trainer._dtype_of``).
 
     Returns a ``TrainResult`` with a leading config axis: the bundles of
     each config's best epoch stacked as ``stack_bundles`` stacks them,
@@ -414,7 +414,7 @@ def train_vae_classes(model: ConvVAE1D, x_cals, x_vals, cfg: TrainConfig,
     """
     xcs, xvs, means, stds, n_max = classes_prep(x_cals, x_vals, spec_stats)
     device = resolve_device(device, x_cals[0])
-    dtype = _dtype_of(x_cals[0])
+    dtype = _dtype_of(x_cals[0], device, "train_vae_classes")
     n_cls = xcs.shape[0]
 
     def dev(a):

@@ -42,12 +42,53 @@ def test_import_pulls_in_no_jax():
             "ocm_tpu_torch.utils.splits, ocm_tpu_torch.models.plsda, "
             "ocm_tpu_torch.utils.checkpoint, ocm_tpu_torch.utils.profiling, "
             "ocm_tpu_torch.utils.report, ocm_tpu_torch.models.stacked, "
-            "ocm_tpu_torch.utils.sweep, ocm_tpu_torch.utils.tpe; "
+            "ocm_tpu_torch.utils.sweep, ocm_tpu_torch.utils.tpe, "
+            "ocm_tpu_torch.cli, ocm_tpu_torch.server, ocm_tpu_torch.config, "
+            "ocm_tpu_torch.models.torch_import, "
+            "ocm_tpu_torch.models.torch_export; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ocm_tpu', 'ml_dtypes', 'flax', 'msgpack', 'orbax', "
             "'h5py', 'matplotlib', 'scipy', 'sklearn')]; "
             "print(bad); "
             "sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("module", ["ocm_tpu_torch.cli",
+                                    "ocm_tpu_torch.server"])
+def test_front_doors_load_no_heavy_dependency(module):
+    """The CLI and the server load scipy, h5py and matplotlib only in the
+    commands that use them, and never sklearn (the card's machine has
+    neither sklearn nor h5py)."""
+    code = (f"import sys, {module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('sklearn', 'scipy', 'h5py', 'matplotlib', 'jax', 'ocm_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sklearn_api_imports_without_sklearn():
+    """Where scikit-learn is missing (the card's machine), the facade
+    imports (stub bases) and every ``fit`` raises ImportError."""
+    code = ("import sys; sys.modules['sklearn'] = None\n"
+            "import numpy as np\n"
+            "from ocm_tpu_torch import sklearn_api as T\n"
+            "assert not T._HAVE_SKLEARN\n"
+            "for est in (T.SIMCAOneClass(device='cpu'), "
+            "T.SIMCAClassifier(device='cpu'), "
+            "T.VAESIMCAOneClass(device='cpu')):\n"
+            "    try:\n"
+            "        est.fit(np.zeros((8, 4)), np.arange(8) % 2)\n"
+            "    except ImportError as e:\n"
+            "        assert 'scikit-learn' in str(e), e\n"
+            "    else:\n"
+            "        raise SystemExit('fit ran without sklearn')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
@@ -318,6 +359,42 @@ def test_k1_plan_is_valid(case, x_bytes):
     assert plan.window % kernels.K1_CHUNK == 0 and 0 < plan.window <= lp
     assert not plan.resident or plan.window == lp
     assert plan.icov_shared == (4 * c * k * k <= H100_LIMITS[1] // 4)
+
+
+@pytest.mark.cuda
+def test_float64_numpy_runs_in_float32_on_the_card(cuda):
+    """F1: float64 numpy with no dtype= runs in float32 through K1 and
+    K2/K3/K4/K6; an explicit float64 CUDA tensor raises ValueError at the
+    entry point."""
+    from ocm_tpu_torch.utils.synthetic import cheese_like
+
+    x_tr, y_tr, x_ts, _ = cheese_like(seed=1, n_per_class=40, length=64,
+                                      n_classes=3)
+    assert x_tr.dtype == np.float64
+    kernels.t2q_scores_multiclass.launches = 0
+    est = TS.SIMCA(n_components=4, model_class=0, verbose=False)
+    pred = est.fit(x_tr, y_tr).predict(x_ts)
+    models = TS.fit_classes(x_tr, y_tr, [0, 1, 2], 4)
+    assert models.mean.dtype == torch.float32 and models.mean.is_cuda
+    accept, dred, _, _ = TS.predict_classes(models, x_ts)
+    torch.cuda.synchronize()
+    assert kernels.t2q_scores_multiclass.launches == 2
+    assert pred.shape == (len(x_ts), 1) and dred.dtype == torch.float32
+    with pytest.raises(ValueError, match="float64 on CUDA.*K1"):
+        TS.predict_classes(models, torch.as_tensor(x_ts, device=cuda))
+
+    bn.bn_act_fwd.launches = bn.bn_act_bwd.launches = 0
+    small = dict(conv_blocks=2, n_filters=4, hidden_fc=16)
+    r = TT.train_vae(TV.ConvVAE1D(64, 4, **small), x_tr[:48], x_tr[48:64],
+                     TT.TrainConfig(epochs=2, batch_size=16), 0)
+    torch.cuda.synchronize()
+    assert r.bundle.spec_mean.dtype == torch.float32
+    assert bn.bn_act_fwd.launches == bn.bn_act_bwd.launches == 4 * 3 * 2
+    assert np.isfinite(r.train_losses).all()
+    with pytest.raises(ValueError, match="float64 on CUDA.*K2"):
+        TT.train_vae(TV.ConvVAE1D(64, 4, **small),
+                     torch.as_tensor(x_tr[:48], device=cuda), x_tr[48:64],
+                     TT.TrainConfig(epochs=1), 0)
 
 
 @pytest.mark.cuda

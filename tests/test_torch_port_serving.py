@@ -190,8 +190,10 @@ def test_scorer_validation_errors(classes):
         VAEScorer(tm, tbs[0], compute_dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="item 14"):
         VAEScorer(tm, tbs[0], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        VAEScorer.from_torch_checkpoint("model.pth", tm)
+    # a reference .pth is served since models/torch_import.py's port
+    # (tests/test_torch_port_torch_io.py); a missing file raises
+    with pytest.raises(FileNotFoundError):
+        VAEScorer.from_torch_checkpoint("no_such_model.pth", tm, device="cpu")
 
 
 def test_stack_bundles_validates():
