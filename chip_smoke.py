@@ -67,7 +67,12 @@ CUDA kernel against its plain PyTorch twin:
   (``sklearn_api.py``, which call the same ``fit_simca``, ``fit_classes``,
   ``predict_classes``, ``train_vae`` and ``fit_vaesimca`` as this phase)
   and ``ingest`` / ``.h5`` input; the CPU tests hold them against
-  ``ocm_tpu``.
+  ``ocm_tpu``;
+- the multi-card paths (twelfth slice, ``ocm_tpu_torch/parallel``): the
+  sharded SIMCA fit and screen (``examples/distributed_scoring.py``'s
+  flow), streaming ingest and CV sweeps, data-parallel VAE training, the
+  config- and class-sharded sweeps and ``mesh=`` on the scorers and ASHA,
+  on a one-rank NCCL group and on two gloo ranks sharing the card.
 
 Phases, each of which exits non-zero on failure:
 
@@ -194,7 +199,21 @@ Phases, each of which exits non-zero on failure:
    the server over the stacked SIMCA run dir (warmup, a 65,536-spectrum
    npz request: exactly 8 K1 and bit-equal to ``score``, JSON, 8
    concurrent posts, a 429 at ``max_queue=1``, ``/reload`` to the VAE
-   run dir), and the commands' and requests' times.
+   run dir), and the commands' and requests' times;
+21. the sharded paths: pass (a), this process on a one-rank NCCL group
+   (the fit, ``predict_sharded``, one DP step, the 8-config sweep), and
+   pass (b), two spawned gloo ranks sharing ``cuda:0`` with CUDA tensors
+   (every workload: the rsvd and eigh fits of bench class 0,
+   ``predict_sharded`` of 98,304 spectra, phase 16's 7 ingest batches,
+   the three sharded CV sweeps, one DP step and ``train_vae_dp`` of the
+   entry model, the 8-config sweep, the 5-class trainer, the four screen
+   widths at 98,304 and ASHA), pass (b) running beside pass (a) and the
+   local paths; every rank held to the local path on the card (fit limits
+   1e-4 and accepts 99.9 %; scores exact, dred 1e-5; moments 1e-5; CV 0.5
+   pp and the same best LV; the DP step 1e-5 / 1e-4 of norm; sweeps at
+   phase 19's contract; screens' accepts equal, statistics 1e-6), exact
+   launches on every rank, (a) against (b); a rank that fails, dies or
+   hangs fails the run.
 
 Prints a JSON line with every kernel's record, the card's ``nvidia-smi``
 name and power limit, and as its last line
@@ -3963,6 +3982,558 @@ def front_door_phases(dev, card):
     return launches, errs
 
 
+# --- phase 21: the sharded paths (ocm_tpu_torch/parallel) -----------------
+
+# train_vae_dp of the entry model on bench_all's 640 spectra at global batch
+# 64: 3 epochs, cut from train_vae's 20 (phase 7) for the phase's 90 s
+PAR_DP_EPOCHS = 3
+# the rank processes' group timeout and the parent's wait for their answers
+PAR_TIMEOUT_S = 300
+
+
+def _np_tree(tree):
+    """Tensors of a tree of dicts, tuples and lists as numpy."""
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_np_tree(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_np_tree(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def finite_rel(got, ref):
+    """Max relative error over the finite entries of ``ref``; inf where the
+    two are not finite at the same entries (a diverged config must diverge
+    at the same epochs in both runs)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    ok = np.isfinite(ref)
+    if not np.array_equal(ok, np.isfinite(got)):
+        return math.inf
+    return float(np.max(np.abs(got[ok] - ref[ok]) / np.abs(ref[ok]),
+                        initial=0.0))
+
+
+def dp_step_vs_single(dev, mesh):
+    """One data-parallel step of the entry model (cross-replica BatchNorm,
+    this rank's rows of the global batch of 64) against the single-process
+    step on the whole batch, the same weights, batch and noise: (loss
+    relative error, gradient error over the gradient norm, K2-K6 launches
+    of the DP step)."""
+    from ocm_tpu_torch.parallel.train_dist import make_dp_train_step
+
+    x = vae_workload()
+    mean, std = vae_bundle.spectral_stats(x)
+    xb = torch.as_tensor((x[:VAE_BATCH] - mean) / std, device=dev)
+    eps = torch.randn(VAE_BATCH, VAE_KW["latent_dim"],
+                      generator=torch.Generator().manual_seed(21)).to(dev)
+    cfg = vae_trainer.TrainConfig(batch_size=VAE_BATCH, lr=1e-3,
+                                  loss_type="bce")
+    grads = []
+    for dp in (True, False):
+        model = ConvVAE1D(**VAE_KW, bn_axis_name="data" if dp else None)
+        model.to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+        if dp:
+            step = make_dp_train_step(model, opt, cfg, mesh)
+            rows = mesh.rows(VAE_BATCH, "data")
+            loss, counts, _ = all_counted(lambda: step(xb[rows], eps[rows]))
+        else:
+            loss = vae_trainer.make_train_step(model, opt, cfg)(xb, eps)
+        grads.append((float(loss), torch.cat([p.grad.reshape(-1)
+                                              for p in model.parameters()])))
+    (l_dp, g_dp), (l_sp, g_sp) = grads
+    return (abs(l_dp - l_sp) / abs(l_sp),
+            float((g_dp - g_sp).norm() / g_sp.norm()), counts)
+
+
+def parallel_workloads(dev, refs, full: bool) -> dict:
+    """Phase 21's workloads on this rank, each driven as a user calls it
+    with every kernel's count set to 0 just before and read just after:
+    {workload: (result as numpy, launches, host ms)}.  ``full`` False runs
+    the single-rank NCCL subset (the fit, ``predict_sharded``, one DP step
+    and the 8-config sweep)."""
+    from ocm_tpu_torch.models.simca import (simca_model_from_numpy,
+                                            simca_model_to_numpy)
+    from ocm_tpu_torch.parallel import mesh as pm
+    from ocm_tpu_torch.parallel import simca_dist, sweep_dist, train_dist
+
+    dmesh = pm.make_mesh(axis_names=("data",), device=dev)
+    mmesh = pm.make_mesh(axis_names=("model",), device=dev)
+    world = dmesh.size
+    # the 2-D sweep's mesh: (1, 2) on pass (b)'s two ranks
+    mesh2 = pm.make_mesh((1, world), ("model", "data"), device=dev)
+    out = {}
+
+    def run(name, fn):
+        res, counts, ms = all_counted(fn)
+        out[name] = (_np_tree(res), counts, ms)
+        return res
+
+    # the fit and screen of examples/distributed_scoring.py: bench class 0
+    # fitted sample-sharded, the 98,304 bench spectra scored sharded
+    cals, xs = make_data()
+    x_pad, n_true = pm.pad_to_multiple(cals[0].astype(np.float32), world)
+    w = (np.arange(x_pad.shape[0]) < n_true).astype(np.float32)
+    fitted = {}
+    for solver in ("rsvd", "eigh") if full else ("rsvd",):
+        fitted[solver] = run(f"fit_{solver}",
+                             lambda: simca_dist.fit_simca_sharded(
+                                 x_pad, w, K, dmesh, solver=solver))
+        out[f"fit_{solver}"] = (simca_model_to_numpy(fitted[solver]),
+                                *out[f"fit_{solver}"][1:])
+    xs32 = xs.astype(np.float32)
+    del xs
+    run("predict", lambda: simca_dist.predict_sharded(fitted["rsvd"], xs32,
+                                                      dmesh))
+    t0 = time.perf_counter()
+    loss_rel, grad_rel, counts = dp_step_vs_single(dev, dmesh)
+    out["dp_step"] = ((loss_rel, grad_rel), counts,
+                      1e3 * (time.perf_counter() - t0))
+    x = batched_sweep_data()
+    run("sweep", lambda: sweep_dist.train_vae_vmapped_sharded(
+        ConvVAE1D(**VAE_KW), x[:SWEEP_CAL], x[SWEEP_CAL:], SWEEP_LRS,
+        [0.0] * SWEEP_CFGS, [1.0] * SWEEP_CFGS, mmesh, epochs=SWEEP_EPOCHS,
+        batch_size=VAE_BATCH, loss_type="cosine", seed=0)._replace(
+            bundle=None, final_state=None, final_opt_state=None))
+    if not full:
+        return out
+
+    labels = np.repeat(np.arange(N_CLASSES), N_CAL)
+    cal32 = cals.reshape(-1, LENGTH).astype(np.float32)
+    order = np.random.default_rng(7).permutation(len(labels))
+
+    def moments():
+        mom = streaming.moments_init(LENGTH, device=dev)
+        for i in range(0, len(order), SRV_BATCH):
+            idx = order[i:i + SRV_BATCH]
+            mom = simca_dist.moments_update_sharded(
+                mom, cal32[idx], dmesh, w=(labels[idx] == 0))
+        return mom
+
+    run("moments", moments)
+    xcv, ycv = cv_data()
+    kw = dict(n_splits=CV_FOLDS, solver="rsvd")
+    run("cv", lambda: simca_dist.cv_sweep_sharded(xcv, ycv, 0, CV_LVS, mmesh,
+                                                  **kw))
+    run("cv_multiclass", lambda: simca_dist.cv_sweep_sharded_multiclass(
+        xcv, ycv, [0, 1], CV_LVS, mmesh, **kw))
+    run("cv_2d", lambda: simca_dist.cv_sweep_sharded_2d(
+        xcv, ycv, 0, CV_LVS, mesh2, **kw))
+    xv = vae_workload()
+    run("train_vae_dp", lambda: train_dist.train_vae_dp(
+        ConvVAE1D(**VAE_KW, bn_axis_name="data"), xv, xv[:VAE_BATCH],
+        vae_trainer.TrainConfig(epochs=PAR_DP_EPOCHS, batch_size=VAE_BATCH,
+                                lr=1e-3, loss_type="bce"), 0, dmesh)[1:])
+    cls = refs["classes_data"]
+    run("classes", lambda: sweep_dist.train_vae_classes_sharded(
+        ConvVAE1D(**cls["arch"]), cls["x_cals"], cls["x_vals"],
+        vae_trainer.TrainConfig(**cls["cfg"]), mmesh, seed=42)._replace(
+            bundle=None, final_state=None, final_opt_state=None))
+    models = simca_model_from_numpy(refs["models"], device=dev)
+    raw_models = simca_model_from_numpy(refs["raw_models"], device=dev)
+    x64 = serving_data()
+    screens = {"f32": x64.astype(np.float32), "raw-u16": camera_counts(x64)}
+    screens["bf16"] = screens["int8"] = screens["f32"]
+    del x64
+    for mode in SRV_MODES:
+        kw = ({"preprocess_fn": prep_raw} if mode == "raw-u16" else
+              {"store_dtype": {"f32": None, "bf16": torch.bfloat16,
+                               "int8": torch.int8}[mode]})
+        scorer = SIMCAScorer(raw_models if mode == "raw-u16" else models,
+                             chunk_size=SRV_CHUNK, mesh=dmesh, **kw)
+        run(f"screen_{mode}", lambda: scorer.score(screens[mode]))
+    hpo = refs["hpo_data"]
+    run("asha", lambda: {k: v for k, v in sweep.asha_vae_search(
+        hpo["x_cal"], hpo["x_val"], HPO_SPACE, n_trials=HPO_TRIALS,
+        max_epochs=HPO_EPOCHS, reduction=HPO_REDUCTION, seed=HPO_SEED,
+        base_config=HPO_BASE, mesh=mmesh, verbose=False).items()
+        if k in ("rungs", "total_epochs", "best_value", "trials")})
+    return out
+
+
+def parallel_rank(rank, world, init_file, refs, results):
+    """One rank of phase 21's pass (b) (gloo, every rank on ``cuda:0``):
+    its workloads' results, or its traceback, into ``results``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        _build.library()
+        dist.init_process_group(
+            "gloo", init_method=f"file://{init_file}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+        try:
+            out = parallel_workloads(torch.device("cuda", 0), refs, True)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, "ok", out))
+    except BaseException:
+        results.put((rank, "err", traceback.format_exc()))
+
+
+def nccl_pass(dev, refs, tmp):
+    """Pass (a): one process, a single-rank NCCL group on ``cuda:0`` (its
+    collectives run through the group), the workload subset."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'nccl_store')}",
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        check(dist.get_backend() == "nccl", "pass (a) is not on NCCL")
+        return [parallel_workloads(dev, refs, full=False)]
+    finally:
+        dist.destroy_process_group()
+
+
+def start_gloo_pass(refs, tmp, world=2):
+    """Pass (b): start ``world`` spawned gloo ranks sharing ``cuda:0`` with
+    CUDA tensors, every workload; ``finish_gloo_pass`` collects them."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init_file = os.path.join(tmp, "gloo_store")
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, world, init_file, refs, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, results
+
+
+def finish_gloo_pass(procs, results):
+    """Pass (b)'s results, in rank order.  A rank that fails, dies or hangs
+    fails the run; every rank process is stopped before this returns."""
+    import queue
+
+    outs, errors = [None] * len(procs), []
+    try:
+        for _ in procs:
+            try:
+                rank, status, value = results.get(timeout=PAR_TIMEOUT_S)
+            except queue.Empty:
+                raise SystemExit("chip_smoke: FAILED: phase 21: a gloo rank "
+                                 f"gave no answer within {PAR_TIMEOUT_S} s")
+            if status == "err":
+                errors.append(f"rank {rank}: {value}")
+            outs[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not errors, "phase 21 (b): " + "\n".join(errors))
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 21 (b): rank exit codes {[p.exitcode for p in procs]}")
+    return outs
+
+
+def parallel_refs(dev):
+    """The local (unsharded) references of phase 21, on the card, and the
+    inputs its ranks take from the parent (fitted models, split data)."""
+    cals, _ = make_data()
+    labels = np.repeat(np.arange(N_CLASSES), N_CAL)
+    cal64 = cals.reshape(-1, LENGTH)
+    models = fit_classes(cal64.astype(np.float32), labels,
+                         list(range(N_CLASSES)), K, solver="rsvd")
+    raw_models = fit_classes(
+        prep_raw(torch.as_tensor(camera_counts(cal64), device=dev)
+                 .to(torch.float32)), labels, list(range(N_CLASSES)), K,
+        solver="rsvd")
+    data = synthetic.nut_objects(seed=42)
+    names = list(data)
+    length = data[names[0]][0].shape[1]
+    sps = [splits.object_aware_splits(data, names, nut, length,
+                                      verbose=False) for nut in names]
+    nuts = synthetic.nut_objects()
+    hpo = splits.object_aware_splits(nuts, list(nuts), "peanut",
+                                     nuts["peanut"][0].shape[1],
+                                     verbose=False)
+    from ocm_tpu_torch.models.simca import simca_model_to_numpy
+
+    refs = {"models": simca_model_to_numpy(models),
+            "raw_models": simca_model_to_numpy(raw_models),
+            "classes_data": {
+                "arch": dict(input_length=length, latent_dim=6,
+                             conv_blocks=2, n_filters=16, hidden_fc=64),
+                "cfg": dict(epochs=8, batch_size=64, lr=1e-3,
+                            loss_type="euclidean"),
+                "x_cals": [np.asarray(s.x_cal) for s in sps],
+                "x_vals": [np.asarray(s.x_val) for s in sps]},
+            "hpo_data": {"x_cal": np.asarray(hpo.x_cal),
+                         "x_val": np.asarray(hpo.x_val),
+                         "cal": hpo.x_cal.shape[0]}}
+    return refs, models, raw_models
+
+
+def parallel_local(dev, refs, models, raw_models):
+    """The local (unsharded) paths of phase 21's workloads on the card, the
+    references its ranks are held to."""
+    from ocm_tpu_torch.models.simca import simca_decide
+
+    loc = {}
+    cals, xs = make_data()
+    x0 = cals[0].astype(np.float32)
+    loc["xs32"] = torch.as_tensor(xs.astype(np.float32), device=dev)
+    del xs
+    loc["fit"] = {s: fit_simca_masked(torch.as_tensor(x0, device=dev),
+                                      torch.ones(len(x0), device=dev), K,
+                                      solver=s) for s in ("rsvd", "eigh")}
+    loc["accept"] = {s: simca_decide(m, loc["xs32"])[0].cpu().numpy()
+                     for s, m in loc["fit"].items()}
+    xcv, ycv = cv_data()
+    loc["cv"] = cv.cv_simca_sweep(xcv, ycv, 0, CV_LVS, n_splits=CV_FOLDS,
+                                  solver="rsvd")
+    loc["cv_multiclass"] = cv.cv_simca_sweep_multiclass(
+        xcv, ycv, [0, 1], CV_LVS, n_splits=CV_FOLDS, solver="rsvd")
+    loc["sweep"] = batched_sweep(epochs=SWEEP_EPOCHS)
+    cls = refs["classes_data"]
+    loc["classes"] = sweep.train_vae_classes(
+        ConvVAE1D(**cls["arch"]), cls["x_cals"], cls["x_vals"],
+        vae_trainer.TrainConfig(**cls["cfg"]), seed=42)
+    x64 = serving_data()
+    loc["screen"] = {mode: s.score(camera_counts(x64) if mode == "raw-u16"
+                                   else x64.astype(np.float32))
+                     for mode, s in make_serving_scorers(
+                         models, raw_models).items()}
+    del x64
+    order = np.random.default_rng(7).permutation(N_CLASSES * N_CAL)
+    labels = np.repeat(np.arange(N_CLASSES), N_CAL)
+    cal32 = cals.reshape(-1, LENGTH).astype(np.float32)
+    mom = streaming.moments_init(LENGTH, device=dev)
+    for i in range(0, len(order), SRV_BATCH):
+        idx = order[i:i + SRV_BATCH]
+        mom = streaming.moments_update(
+            mom, cal32[idx], w=(labels[idx] == 0).astype(np.float32))
+    loc["moments"] = mom
+    torch.cuda.synchronize()
+    return loc
+
+
+def parallel_checks(dev, refs, loc, passes):
+    """Every rank's results of both passes against the local paths on the
+    card (``parallel_local``), and pass (a) against pass (b); returns the
+    checks' numbers."""
+    from ocm_tpu_torch.models.simca import simca_decide, simca_model_from_numpy
+
+    nums = {}
+    xs32, local, acc_local = loc["xs32"], loc["fit"], loc["accept"]
+    cv_local, cv_multi_local = loc["cv"], loc["cv_multiclass"]
+    sweep_local, classes_local = loc["sweep"], loc["classes"]
+    screen_local, mom_local = loc["screen"], loc["moments"]
+    cls = refs["classes_data"]
+
+    def lims(tree):
+        return np.array([float(tree["t2_res"]["limit"]),
+                         float(tree["q_res"]["limit"]),
+                         float(tree["d_limit"])])
+
+    steps = -(-SWEEP_CAL // VAE_BATCH)
+    worst = dict.fromkeys(("fit_limit_rel", "fit_accept_agree_min",
+                           "predict_dred_rel", "moments_rel", "cv_pp",
+                           "dp_loss_rel", "dp_grad_rel", "sweep_train",
+                           "sweep_val", "classes_train", "classes_val"),
+                          0.0)
+    worst["fit_accept_agree_min"] = 1.0
+    for label, ranks in passes.items():
+        world = len(ranks)
+        for rank, out in enumerate(ranks):
+            where = f"phase 21 ({label}) rank {rank}"
+            for solver in ("rsvd", "eigh"):
+                if f"fit_{solver}" not in out:
+                    continue
+                tree = out[f"fit_{solver}"][0]
+                ref = local[solver]
+                ref_l = np.array([float(ref.t2_res.limit),
+                                  float(ref.q_res.limit),
+                                  float(ref.d_limit)])
+                rel = float(np.max(np.abs(lims(tree) - ref_l)
+                                   / np.abs(ref_l)))
+                check(rel <= 1e-4, f"{where}: {solver} fit limits {rel}")
+                sharded = simca_model_from_numpy(tree, device=dev)
+                agree = float((simca_decide(sharded, xs32)[0].cpu().numpy()
+                               == acc_local[solver]).mean())
+                check(agree >= 0.999, f"{where}: {solver} accepts {agree}")
+                worst["fit_limit_rel"] = max(worst["fit_limit_rel"], rel)
+                worst["fit_accept_agree_min"] = min(
+                    worst["fit_accept_agree_min"], agree)
+            # the sharded screen against local simca_decide of its rows
+            (acc, dred, _, _), counts, _ = out["predict"]
+            rows = slice(rank * N_SCORE // world,
+                         (rank + 1) * N_SCORE // world)
+            sharded = simca_model_from_numpy(out["fit_rsvd"][0], device=dev)
+            acc_r, dred_r, _, _ = simca_decide(sharded, xs32[rows])
+            check(np.array_equal(acc, acc_r.cpu().numpy()),
+                  f"{where}: predict_sharded accepts differ")
+            rel = float(np.max(np.abs(dred - dred_r.cpu().numpy())
+                               / np.abs(dred_r.cpu().numpy())))
+            check(rel <= 1e-5, f"{where}: predict_sharded dred {rel}")
+            check(counts["t2q_scores_multiclass"] == 1 and only(
+                counts, t2q_scores_multiclass=1),
+                f"{where}: predict_sharded launches {counts}")
+            worst["predict_dred_rel"] = max(worst["predict_dred_rel"], rel)
+            # the data-parallel step against the single-process step
+            (loss_rel, grad_rel), step_counts, _ = out["dp_step"]
+            check(loss_rel <= 1e-5 and grad_rel <= 1e-4,
+                  f"{where}: DP step loss {loss_rel}, gradients {grad_rel}")
+            check(only(step_counts, reparam_kl=1, reparam_kl_bwd=1),
+                  f"{where}: DP step launches {step_counts}")
+            worst["dp_loss_rel"] = max(worst["dp_loss_rel"], loss_rel)
+            worst["dp_grad_rel"] = max(worst["dp_grad_rel"], grad_rel)
+            # the 8-config sweep: each rank one stacked run of its slice
+            res, counts, _ = out["sweep"]
+            check(only(counts, **stacked_launches(6, steps, SWEEP_EPOCHS)),
+                  f"{where}: sharded sweep launches {counts}")
+            tl = finite_rel(res[1], sweep_local.train_losses)
+            vl = finite_rel(res[2], sweep_local.val_losses)
+            check(tl <= 1e-5 and vl <= 2e-3 and np.array_equal(
+                res[3], sweep_local.best_epoch),
+                f"{where}: sharded sweep train {tl}, val {vl}, best "
+                f"{res[3]} vs {sweep_local.best_epoch}")
+            worst["sweep_train"] = max(worst["sweep_train"], float(tl))
+            worst["sweep_val"] = max(worst["sweep_val"], float(vl))
+            if "moments" not in out:
+                continue
+            mom, _, _ = out["moments"]
+            scale = float(mom_local.scatter.abs().max())
+            rel = max(float(np.max(np.abs(mom.scatter - mom_local.scatter
+                                          .cpu().numpy()))) / scale,
+                      float(np.max(np.abs(mom.mean - mom_local.mean.cpu()
+                                          .numpy()))) /
+                      float(mom_local.mean.abs().max()),
+                      abs(float(mom.n) - float(mom_local.n)))
+            check(rel <= 1e-5, f"{where}: sharded moments {rel}")
+            worst["moments_rel"] = max(worst["moments_rel"], rel)
+            for name, ref in (("cv", cv_local), ("cv_2d", cv_local),
+                              ("cv_multiclass", cv_multi_local)):
+                got = out[name][0]
+                pp = max(float(np.max(np.abs(got[k] - ref[k])))
+                         for k in ("sens", "spec"))
+                same = np.array_equal(np.argmax(got["eff"], -1),
+                                      np.argmax(ref["eff"], -1))
+                check(pp <= 0.5 and same, f"{where}: {name} {pp} pp, best "
+                      f"LV {np.argmax(got['eff'], -1)} vs "
+                      f"{np.argmax(ref['eff'], -1)}")
+                worst["cv_pp"] = max(worst["cv_pp"], pp)
+            (tl, vl, best), counts, _ = out["train_vae_dp"]
+            steps_dp = VAE_N // VAE_BATCH
+            check(bool(np.isfinite(tl).all() and np.isfinite(vl).all())
+                  and tl[-1] < tl[0], f"{where}: train_vae_dp losses {tl}")
+            check(only(counts, reparam_kl=(steps_dp + 1) * PAR_DP_EPOCHS,
+                       reparam_kl_bwd=steps_dp * PAR_DP_EPOCHS),
+                  f"{where}: train_vae_dp launches {counts}")
+            res, counts, _ = out["classes"]
+            n_max = max(len(x) for x in cls["x_cals"])
+            check(only(counts, **stacked_launches(
+                4, -(-n_max // cls["cfg"]["batch_size"]),
+                cls["cfg"]["epochs"])), f"{where}: classes launches {counts}")
+            tl = finite_rel(res[1], classes_local.train_losses)
+            vl = finite_rel(res[2], classes_local.val_losses)
+            check(tl <= 1e-5 and vl <= 2e-3 and np.array_equal(
+                res[3], classes_local.best_epoch),
+                f"{where}: sharded classes train {tl}, val {vl}")
+            worst["classes_train"] = max(worst["classes_train"], float(tl))
+            worst["classes_val"] = max(worst["classes_val"], float(vl))
+            for mode in SRV_MODES:
+                got, counts, _ = out[f"screen_{mode}"]
+                ref = screen_local[mode]
+                check(np.array_equal(got["accept"], ref["accept"]),
+                      f"{where}: sharded {mode} screen accepts differ")
+                rel = max(float(np.max(np.abs(got[k] - ref[k])))
+                          / float(np.max(np.abs(ref[k])))
+                          for k in ("dred", "t2", "q"))
+                # bit-equal where the same kernel computes each row; within
+                # 1e-6 of scale otherwise (PERF.md says which and why)
+                check(rel <= 1e-6,
+                      f"{where}: sharded {mode} statistics differ by {rel}")
+                key = f"screen_{mode}_stats_rel"
+                nums[key] = max(nums.get(key, 0.0), rel)
+                want = {"f32": {"t2q_scores_multiclass": 2},
+                        "raw-u16": {"t2q_scores_multiclass": 2},
+                        "bf16": {"t2q_scores_multiclass_bf16": 2},
+                        "int8": {"int8_gemm_s32": 2}}[mode]
+                check(only(counts, **want),
+                      f"{where}: sharded {mode} launches {counts}")
+            res, counts, _ = out["asha"]
+            rungs, total = asha_schedule(HPO_TRIALS, HPO_EPOCHS,
+                                         HPO_REDUCTION)
+            check(res["rungs"] == rungs and res["total_epochs"] == total
+                  and np.isfinite(res["best_value"]),
+                  f"{where}: sharded ASHA {res['rungs']} "
+                  f"{res['total_epochs']} {res['best_value']}")
+            hpo_steps = -(-refs["hpo_data"]["cal"] // HPO_BASE["batch_size"])
+            want = halving_k2(res["trials"], res["rungs"], hpo_steps)
+            check(counts["bn_act_fwd"] == want == counts["bn_act_bwd"],
+                  f"{where}: sharded ASHA K2/K3 {counts} != {want}")
+    # pass (a) against pass (b)
+    a, b = passes["a"][0], passes["b"][0]
+    rel = float(np.max(np.abs(lims(a["fit_rsvd"][0]) - lims(b["fit_rsvd"][0]))
+                       / np.abs(lims(b["fit_rsvd"][0]))))
+    check(rel <= 1e-4, f"phase 21: NCCL and gloo fits differ by {rel}")
+    check(np.array_equal(a["sweep"][0][3], b["sweep"][0][3]),
+          "phase 21: NCCL and gloo sweeps' best epochs differ")
+    nums["nccl_vs_gloo_fit_rel"] = rel
+    nums.update(worst)
+    return nums
+
+
+def parallel_phases(dev, card):
+    """Phase 21, the sharded paths of ``ocm_tpu_torch.parallel`` on the
+    card: pass (a) on a single-rank NCCL group in this process, pass (b) on
+    two gloo ranks sharing ``cuda:0``, each held to the local paths.
+    Returns {kernel record: launches of both passes, every rank}."""
+    t_phase = time.perf_counter()
+    refs, models, raw_models = parallel_refs(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        # pass (b)'s ranks work while this process runs pass (a) and the
+        # local paths: three processes share the card and the host
+        t_b = time.perf_counter()
+        procs, results = start_gloo_pass(refs, tmp)
+        passes = {}
+        try:
+            t0 = time.perf_counter()
+            passes["a"] = nccl_pass(dev, refs, tmp)
+            a_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loc = parallel_local(dev, refs, models, raw_models)
+            local_s = time.perf_counter() - t0
+        finally:
+            passes["b"] = finish_gloo_pass(procs, results)
+        b_s = time.perf_counter() - t_b
+    nums = parallel_checks(dev, refs, loc, passes)
+    launches = {}
+    for ranks in passes.values():
+        for out in ranks:
+            for _, counts, _ in out.values():
+                for k, n in counts.items():
+                    launches[k] = launches.get(k, 0) + n
+    host_ms = {label: [{name: ms for name, (_, _, ms) in out.items()}
+                       for out in ranks] for label, ranks in passes.items()}
+    print(json.dumps({"phase": "parallel", "card": card,
+                      "passes": {"a": "nccl, 1 rank", "b": "gloo, 2 ranks "
+                                 "sharing cuda:0, CUDA tensors"},
+                      "pass_s": {"a": a_s, "b": b_s, "local": local_s},
+                      "host_ms": host_ms,
+                      "launches": launches, **nums}), flush=True)
+    print(f"phase 21 seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-times", action="store_true",
@@ -4231,6 +4802,10 @@ def main(argv=None) -> int:
     for kernel, e in errs.items():
         rec = next(r for r in records if r["name"] == kernel)
         rec["max_abs_err"] = max(rec["max_abs_err"], e)
+    # 21. the sharded paths; their launches, every rank's, go into the
+    #     records of their kernels
+    for kernel, n in parallel_phases(dev, card).items():
+        next(r for r in records if r["name"] == kernel)["launches"] += n
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ocm_tpu_torch.ops.bn import apply_act, bn_act_normalize, fused_bn_act
+from ocm_tpu_torch.ops.bn import (apply_act, bn_act_normalize,
+                                  cross_replica_bn_act, fused_bn_act)
 from ocm_tpu_torch.ops.kernels import fused_reparam_kl, reparam_kl_sample
 
 
@@ -92,12 +93,19 @@ class BatchNormAct(nn.Module):
     (f32) and ``num_batches_tracked``.  Training: ``fused_bn_act`` and the
     running update ``m * running + (1 - m) * batch`` (m = 0.9, biased fast
     variance).  Eval: the running statistics through ``bn_act_normalize``.
+
+    ``axis_name`` (flax's ``axis_name``): training statistics averaged over
+    the data-parallel ranks of that mesh axis through ``cross_replica_bn_act``
+    and the ``pmean`` that ``parallel.train_dist`` binds; such a layer
+    trains only inside a data-parallel step.
     """
 
     def __init__(self, num_features: int, act: str = "elu",
-                 momentum: float = 0.9, eps: float = 1e-5):
+                 momentum: float = 0.9, eps: float = 1e-5,
+                 axis_name: str | None = None):
         super().__init__()
         self.act, self.momentum, self.eps = act, momentum, eps
+        self.axis_name, self.pmean = axis_name, None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -110,8 +118,17 @@ class BatchNormAct(nn.Module):
             return bn_act_normalize(x, self.running_mean, self.running_var,
                                     self.weight, self.bias, self.eps,
                                     self.act)
-        out, mean, var = fused_bn_act(x, self.weight, self.bias, self.eps,
-                                      self.act)
+        if self.axis_name is None:
+            out, mean, var = fused_bn_act(x, self.weight, self.bias,
+                                          self.eps, self.act)
+        elif self.pmean is None:
+            raise RuntimeError(
+                f"BatchNorm with axis_name={self.axis_name!r} trains only in "
+                "a data-parallel step over a mesh with that axis "
+                "(parallel.train_dist.make_dp_train_step)")
+        else:
+            out, mean, var = cross_replica_bn_act(
+                x, self.weight, self.bias, self.eps, self.act, self.pmean)
         m = self.momentum
         with torch.no_grad():
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -128,6 +145,10 @@ class ConvVAE1D(nn.Module):
     ``init_nonlinearity='relu'``, else 1), biases zero, drawn on the CPU
     from ``generator`` (default: seeded 0), so one seed gives one model on
     any device.
+
+    ``bn_axis_name`` (the reference's): the BatchNorm layers average their
+    training statistics over the ranks of that mesh axis
+    (``parallel.train_dist``).
     """
 
     def __init__(self, input_length: int, latent_dim: int,
@@ -135,8 +156,10 @@ class ConvVAE1D(nn.Module):
                  kernel_size: int = 9, stride: int = 2, hidden_fc: int = 256,
                  activation: str = "elu", dropout: float = 0.0,
                  use_batchnorm: bool = True, init_nonlinearity: str = "linear",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 bn_axis_name: str | None = None):
         super().__init__()
+        self.bn_axis_name = bn_axis_name
         if activation not in ("elu", "gelu"):
             raise ValueError(f"unknown activation {activation!r}")
         self.input_length, self.latent_dim = input_length, latent_dim
@@ -186,7 +209,8 @@ class ConvVAE1D(nn.Module):
         """The reference's [BatchNorm1d,] act[, Dropout] after a conv; the
         activation is fused into BatchNormAct, and an Identity keeps its
         index so that the state-dict keys are the reference's."""
-        layers = ([BatchNormAct(channels, self.activation), nn.Identity()]
+        layers = ([BatchNormAct(channels, self.activation,
+                                axis_name=self.bn_axis_name), nn.Identity()]
                   if self.use_batchnorm else [Act(self.activation)])
         return layers + ([self._drop()] if self.dropout > 0 else [])
 

@@ -165,7 +165,14 @@ def decide_f(model: ConvVAE1D, bundle: OCMBundle, x,
     """
     mu, _ = encode(model, bundle, x)
     x_rec = decode(model, bundle, mu)
-    x_std, r_std = standardize(bundle, x), standardize(bundle, x_rec)
+    return f_decision(bundle, standardize(bundle, x),
+                      standardize(bundle, x_rec), mu, calibration)
+
+
+def f_decision(bundle: OCMBundle, x_std, r_std, mu,
+               calibration=None) -> VAEDecision:
+    """``decide_f``'s statistics and decision from the network's outputs
+    over the scored batch (standardized spectra and reconstructions, mu)."""
     if calibration is None:
         q, h, f = qhf_stats(x_std, r_std, mu)
     else:
@@ -182,6 +189,12 @@ def decide_full_distance(model: ConvVAE1D, bundle: OCMBundle, x,
     ``moments=None`` takes the moments from the scored set (quirk Q4);
     pass calibration moments ``(h0, sh, q0, sq)`` to correct it."""
     q, mu, _ = reconstruction_errors(model, bundle, x, "euclidean")
+    return full_distance_decision(bundle, q, mu, alpha, moments)
+
+
+def full_distance_decision(bundle: OCMBundle, q, mu, alpha: float = 0.05,
+                           moments=None) -> VAEDecision:
+    """``decide_full_distance``'s decision from the scored batch's Q and mu."""
     res = full_distance(mu, bundle.latent_mean, q, alpha=alpha,
                         moments=moments)
     return VAEDecision(res.f <= res.f_crit,

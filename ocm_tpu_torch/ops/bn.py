@@ -19,6 +19,13 @@ The kernels take float32, contiguous, 3-d tensors; on a CPU tensor the
 wrappers compute the plain twins ``bn_act_fwd_plain``/``bn_act_bwd_plain``
 (same formulas), on a CUDA tensor they launch or raise.  There is no size
 gate: the card has no counterpart of the TPU kernel's VMEM budget.
+
+``cross_replica_bn_act`` is the data-parallel form (``ocm_tpu``'s
+``bn_axis_name``, ``bn.py:173-183``): the batch mean and mean square are
+averaged over ranks by the caller's ``pmean``, and the backward averages
+their cotangents the same way (the ``SyncBatchNorm`` pattern).  As in the
+reference, it runs the plain twin: the reduction sits between the
+statistics and the normalization, inside no single kernel.
 """
 
 from __future__ import annotations
@@ -252,3 +259,55 @@ def fused_bn_act(x, gamma, beta, eps: float = 1e-5, act: str = "elu",
     K3's blocks a channel (see ``bn_act_fwd``).
     """
     return _FusedBNAct.apply(x, gamma, beta, eps, act, cluster)
+
+
+class _CrossReplicaBNAct(torch.autograd.Function):
+    """BatchNorm + activation on batch statistics averaged over ranks: the
+    forward all-reduces (mean, mean square), the backward their cotangents
+    (the transpose of the average); fast variance clamped at 0."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, act, pmean):
+        f = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(f)
+        dims = _stat_dims(x)
+        mean, mean2 = pmean(torch.stack([xf.mean(dims),
+                                         (xf * xf).mean(dims)]))
+        raw = mean2 - mean * mean
+        var = raw.clamp_min(0.0)
+        ctx.save_for_backward(x, gamma, beta, mean, var, raw > 0)
+        ctx.eps, ctx.act, ctx.pmean = eps, act, pmean
+        ctx.mark_non_differentiable(mean, var)
+        return bn_act_normalize(x, mean, var, gamma, beta, eps, act), mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        x, gamma, beta, mean, var, positive = ctx.saved_tensors
+        f = mean.dtype
+        rstd = torch.rsqrt(var + ctx.eps)
+        xm = x.to(f) - _per_channel(mean, x)
+        xhat = xm * _per_channel(rstd, x)
+        y = xhat * _per_channel(gamma.to(f), x) + _per_channel(beta.to(f), x)
+        dy = dout.to(f) * act_grad(y, ctx.act)
+        dims = _stat_dims(x)
+        dbeta = dy.sum(dims)
+        dgamma = (dy * xhat).sum(dims)
+        direct = dy * _per_channel(gamma.to(f) * rstd, x)
+        # var = mean2 - mean^2 (where positive): d/dmean2 = 1, d/dmean = -2 mean
+        dvar = torch.where(positive, (dy * xm).sum(dims) * gamma.to(f)
+                           * (-0.5) * rstd ** 3, 0.0)
+        dmean = -direct.sum(dims) - 2.0 * mean * dvar
+        dmean_l, dmean2_l = ctx.pmean(torch.stack([dmean, dvar]))
+        inv_n = 1.0 / (x.numel() // x.shape[1])
+        dx = (direct + _per_channel(dmean_l * inv_n, x)
+              + x.to(f) * _per_channel(2.0 * dmean2_l * inv_n, x))
+        return (dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+                None, None, None)
+
+
+def cross_replica_bn_act(x, gamma, beta, eps: float, act: str, pmean):
+    """Training-mode BatchNorm + activation of x (B, C, ...) whose batch
+    statistics are ``pmean`` (a callable averaging a (2, C) tensor over
+    the data-parallel ranks) of each rank's mean and mean square.  Returns
+    ``(out, mean, var)`` as ``fused_bn_act`` does."""
+    return _CrossReplicaBNAct.apply(x, gamma, beta, eps, act, pmean)

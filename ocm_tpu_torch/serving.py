@@ -21,8 +21,17 @@ bf16 residuals, int8 residuals with per-row scales, and raw camera counts
 (e.g. uint16) preprocessed on the device.  ``VAEScorer(compute_dtype=
 torch.bfloat16)`` is the reduced-precision twin of the VAE scorer.
 ``VAEScorer.from_torch_checkpoint`` serves a reference ``.pth``.
-Sharding chunks over several cards (``mesh=``) comes with ROADMAP.md
-queue 1 item 14.
+
+``mesh=`` (a ``parallel.mesh.Mesh`` with a ``'data'`` axis; the models on
+``mesh.device``) shards each padded chunk's rows over the ranks: each rank
+prepares and decides its own rows (at every storage width: f32 and raw
+through K1, bf16 through bf16 K1, int8 through K8), the outputs are
+gathered, and ``score``/``score_prepared`` return the whole numpy dict on
+every rank, as JAX's ``np.asarray`` of a sharded output does.
+``chunk_size`` must divide by the axis size.  The VAE variants whose
+statistics are batch-wide ('f' unpinned, 'full': quirks Q3/Q4) run the
+network on each rank's rows, gather its per-row outputs and compute the
+statistics over the whole chunk.
 """
 
 from __future__ import annotations
@@ -57,20 +66,25 @@ def _pad_chunk(chunk: np.ndarray, size: int):
 class _ChunkedScorer:
     """Shared machinery: fixed-size chunks, ragged tails padded.
 
-    A subclass's ``_prepare_chunk`` turns one padded numpy chunk into the
-    tuple of device tensors (of any dtypes) that ``decide_fn(*tensors) ->
-    {name: tensor}`` takes; ``post_fn`` is a host epilogue on the fetched
-    numpy dict, applied before the pad rows are cut.
+    A subclass's ``_prepare_chunk`` turns one padded numpy chunk (this
+    rank's rows of it, under a mesh) into the tuple of device tensors (of
+    any dtypes) that ``decide_fn(*tensors) -> {name: tensor}`` takes;
+    ``gathered_fn`` maps that dict over the whole chunk (gathered from the
+    ranks under a mesh) to the decisions; ``post_fn`` is a host epilogue on the fetched numpy
+    dict, applied before the pad rows are cut.
     """
 
     def __init__(self, decide_fn, chunk_size: int = 8192, mesh=None,
-                 post_fn=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (chunks sharded over devices) comes with the "
-                "torch.distributed slice, ROADMAP.md queue 1 item 14")
+                 post_fn=None, gathered_fn=None):
         self.chunk_size = int(chunk_size)
-        self._fn, self._post = decide_fn, post_fn
+        if mesh is not None:
+            from ocm_tpu_torch.parallel.mesh import (DATA_AXIS,
+                                                     require_mesh_axis)
+
+            require_mesh_axis(mesh, DATA_AXIS)
+            mesh.rows(self.chunk_size, DATA_AXIS)   # chunk_size must divide
+        self._mesh = mesh
+        self._fn, self._post, self._gathered = decide_fn, post_fn, gathered_fn
 
     def _fetch(self, res, n: int) -> dict:
         out = {k: v.cpu().numpy() for k, v in res.items()}
@@ -83,11 +97,17 @@ class _ChunkedScorer:
 
     def _decide(self, *args):
         with torch.inference_mode():
-            return self._fn(*args)
+            out = self._fn(*args)
+            if self._mesh is not None:
+                out = {k: self._mesh.all_gather(v, "data", k)
+                       for k, v in out.items()}
+            return out if self._gathered is None else self._gathered(out)
 
     def _prep(self, x, start):
         chunk, n = _pad_chunk(x[start:start + self.chunk_size],
                               self.chunk_size)
+        if self._mesh is not None:
+            chunk = chunk[self._mesh.rows(self.chunk_size, "data")]
         return self._prepare_chunk(chunk), n
 
     def prepare(self, x) -> list:
@@ -309,6 +329,15 @@ class _Bf16Twin(torch.nn.Module):
         return x_rec.to(z.dtype)
 
 
+def _f_outputs(m, b, vm, xc):
+    """Variant 'f''s per-row network outputs: standardized spectra and
+    reconstructions, and mu (its statistics are batch-wide)."""
+    mu, _ = encode(m, b, xc)
+    x_rec = decode(m, b, mu)
+    return {"x_std": standardize(b, xc), "r_std": standardize(b, x_rec),
+            "mu": mu}
+
+
 class VAEScorer(_ChunkedScorer):
     """Resident VAE one-class scorer over an ``OCMBundle``, single or
     multi-class.
@@ -331,8 +360,8 @@ class VAEScorer(_ChunkedScorer):
     on the bundle's device type, and latents and reconstructions are
     widened back to the bundle's dtype before any statistic, so every
     output other than ``accept`` keeps it.  The twin takes a float32
-    bundle (autocast does not reduce float64).  ``mesh`` comes with
-    ROADMAP.md queue 1 item 14.
+    bundle (autocast does not reduce float64).  ``mesh``: see the module
+    docstring (the bundle on ``mesh.device``).
     """
 
     def __init__(self, model: ConvVAE1D, bundle: OCMBundle,
@@ -395,12 +424,7 @@ class VAEScorer(_ChunkedScorer):
             def decide_one(m, b, vm, xc):
                 return D.decide_d2_q(m, b, xc, loss_type)._asdict()
         elif variant == "f" and pin_f_stats:
-            def decide_one(m, b, vm, xc):
-                mu, _ = encode(m, b, xc)
-                x_rec = decode(m, b, mu)
-                return {"x_std": standardize(b, xc),
-                        "r_std": standardize(b, x_rec), "mu": mu}
-
+            decide_one = _f_outputs
             thr = [float(b.threshold_f) for b in bundles]
 
             def post(d):
@@ -415,11 +439,21 @@ class VAEScorer(_ChunkedScorer):
                     return {k: np.stack(v, axis=1) for k, v in out.items()}
                 return {k: v[0] for k, v in out.items()}
         elif variant == "f":
-            def decide_one(m, b, vm, xc):
-                return D.decide_f(m, b, xc)._asdict()
+            # batch-wide statistics (decide_f in two stages): per-row
+            # network outputs, then the statistics over the whole chunk
+            decide_one = _f_outputs
+
+            def chunk_one(b, d):
+                return D.f_decision(b, d["x_std"], d["r_std"],
+                                    d["mu"])._asdict()
         elif variant == "full":
+            # decide_full_distance in the same two stages
             def decide_one(m, b, vm, xc):
-                return D.decide_full_distance(m, b, xc)._asdict()
+                q, mu, _ = D.reconstruction_errors(m, b, xc, "euclidean")
+                return {"q": q, "mu": mu}
+
+            def chunk_one(b, d):
+                return D.full_distance_decision(b, d["q"], d["mu"])._asdict()
         else:
             raise ValueError(f"unknown variant {variant!r}; expected "
                              "d2|d2_q|f|full|vaesimca")
@@ -437,9 +471,23 @@ class VAEScorer(_ChunkedScorer):
                         for k in outs[0]}
             return outs[0]
 
+        gathered = None
+        if variant in ("f", "full") and not pin_f_stats:
+            def gathered(d):
+                if not self._multiclass:
+                    return chunk_one(bundles[0], d)
+                # contiguous: a class's statistics reduce the same layout
+                # as a single-class scorer's
+                outs = [chunk_one(b, {k: v[:, c].contiguous()
+                                      for k, v in d.items()})
+                        for c, b in enumerate(bundles)]
+                return {k: torch.stack([o[k] for o in outs], 1)
+                        for k in outs[0]}
+
         self._device, self._dtype = (bundle.spec_mean.device,
                                      bundle.spec_mean.dtype)
-        super().__init__(decide, chunk_size, mesh, post_fn=post)
+        super().__init__(decide, chunk_size, mesh, post_fn=post,
+                         gathered_fn=gathered)
 
     def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
         return (torch.as_tensor(chunk, dtype=self._dtype,

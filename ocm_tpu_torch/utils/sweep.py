@@ -49,6 +49,7 @@ from ocm_tpu_torch.models.trainer import (TrainConfig, TrainResult,
                                           _clone_state, _dtype_of,
                                           batch_indices, epoch_generator)
 from ocm_tpu_torch.models.vae import ConvVAE1D
+from ocm_tpu_torch.parallel.mesh import cyclic_pad_to
 from ocm_tpu_torch.utils.io import load_json, save_json
 
 
@@ -59,14 +60,6 @@ def grid_product(base: Mapping, grid: Mapping[str, Sequence]) -> list[dict]:
     for values in itertools.product(*(grid[k] for k in keys)):
         out.append({**base, **dict(zip(keys, values))})
     return out
-
-
-def cyclic_pad_to(a, n: int):
-    """Extend an array's leading axis to exactly ``n`` rows by verbatim
-    cyclic repetition (``ocm_tpu/parallel/mesh.py:100-107``)."""
-    if a.shape[0] == n:
-        return a
-    return a[np.arange(n) % a.shape[0]]
 
 
 def vae_from_config(input_length: int, cfg: Mapping) -> ConvVAE1D:
@@ -415,24 +408,35 @@ def train_vae_classes(model: ConvVAE1D, x_cals, x_vals, cfg: TrainConfig,
     xcs, xvs, means, stds, n_max = classes_prep(x_cals, x_vals, spec_stats)
     device = resolve_device(device, x_cals[0])
     dtype = _dtype_of(x_cals[0], device, "train_vae_classes")
-    n_cls = xcs.shape[0]
+    means_t, stds_t, out = classes_run(model, cfg, seed, xcs, xvs, means,
+                                       stds, n_max, range(xcs.shape[0]),
+                                       device, dtype)
+    return classes_result(out, means_t, stds_t, model)
 
+
+def classes_run(model: ConvVAE1D, cfg: TrainConfig, seed: int, xcs, xvs,
+                means, stds, n_max: int, classes, device, dtype):
+    """The stacked run of ``classes`` (indices into ``classes_prep``'s
+    stacked sets; class c seeded ``config_seed(seed, c)``) on ``device``:
+    ``(means, stds, out)``, every class's statistics as tensors and
+    ``_stacked_run``'s output for the chosen classes."""
     def dev(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
+    classes = list(classes)
     means_t, stds_t = dev(means), dev(stds)
-    spec = (list(zip(means_t, stds_t)) if cfg.loss_space == "raw"
-            else None)
+    spec = ([(means_t[c], stds_t[c]) for c in classes]
+            if cfg.loss_space == "raw" else None)
     tcfg = TrainConfig(epochs=cfg.epochs,
                        batch_size=min(cfg.batch_size, n_max),
                        loss_type=cfg.loss_type, val_every=cfg.val_every,
                        loss_space=cfg.loss_space)
-    out = _stacked_run(model, tcfg, [cfg.lr] * n_cls,
-                       [cfg.weight_decay] * n_cls, [cfg.beta] * n_cls,
-                       [config_seed(seed, c) for c in range(n_cls)],
-                       [dev(a) for a in xcs], [dev(a) for a in xvs], spec,
-                       None, 0)
-    return classes_result(out, means_t, stds_t, model)
+    n = len(classes)
+    out = _stacked_run(model, tcfg, [cfg.lr] * n, [cfg.weight_decay] * n,
+                       [cfg.beta] * n, [config_seed(seed, c) for c in classes],
+                       [dev(xcs[c]) for c in classes],
+                       [dev(xvs[c]) for c in classes], spec, None, 0)
+    return means_t, stds_t, out
 
 
 # ---------------------------------------------------------------------------
@@ -540,16 +544,22 @@ def asha_vae_search(x_cal, x_val, space: Mapping = None, n_trials: int = 9,
     batch_size, loss_type, lr, weight_decay, beta.  Minimizes the best
     validation loss.  ``configs`` (optional) is an explicit cohort (each
     merged over ``base_config``) in place of ``n_trials`` samples.
-    ``mesh`` raises: sharding the config axis over cards comes with
-    ROADMAP.md queue 1 item 14.
+    ``mesh`` (a ``parallel.mesh.Mesh`` with a ``'model'`` axis): fresh
+    rungs train config-sharded across its ranks
+    (``parallel.sweep_dist.train_vae_vmapped_sharded``, the same
+    trajectories as the local stacked run); later rungs resume locally on
+    ``mesh.device``, as in the reference.
 
     Returns ``{"best_config", "best_value", "best_bundle", "history",
     "total_epochs", "rungs", "trials"}`` as ``ocm_tpu`` does.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (config rungs sharded over devices) comes with the "
-            "torch.distributed slice, ROADMAP.md queue 1 item 14")
+        from ocm_tpu_torch.parallel.mesh import MODEL_AXIS, require_mesh_axis
+        from ocm_tpu_torch.parallel.sweep_dist import (
+            train_vae_vmapped_sharded)
+
+        require_mesh_axis(mesh, MODEL_AXIS)
+        device = mesh.device if device is None else device
     if reduction < 2:
         raise ValueError(f"reduction must be >= 2, got {reduction}")
     if n_trials < 1 or max_epochs < 1:
@@ -608,15 +618,27 @@ def asha_vae_search(x_cal, x_val, space: Mapping = None, n_trials: int = 9,
             init = None
             if grp[0]["state"] is not None:
                 init = _restack([tr["state"] for tr in grp])
-            res = train_vae_vmapped(
-                model, x_cal, x_val, [float(c.get("lr", 1e-3)) for c in cfgs],
-                [float(c.get("weight_decay", 0.0)) for c in cfgs],
-                [float(c.get("beta", 1.0)) for c in cfgs],
-                epochs=delta, batch_size=arch[7], loss_type=arch[8],
-                spec_stats=spec_stats,
-                cfg_seeds=[config_seed(seed, tr["id"]) for tr in grp],
-                init_state=init, epoch_offset=grp[0]["epochs"],
-                device=device)
+            grp_lrs = [float(c.get("lr", 1e-3)) for c in cfgs]
+            grp_wds = [float(c.get("weight_decay", 0.0)) for c in cfgs]
+            grp_betas = [float(c.get("beta", 1.0)) for c in cfgs]
+            seeds = [config_seed(seed, tr["id"]) for tr in grp]
+            if mesh is not None and init is None:
+                # the sharded trainer runs fresh trajectories only, from
+                # epoch 0: safe at the first rung alone
+                if grp[0]["epochs"] != 0:
+                    raise AssertionError(
+                        "sharded rung reached with trained trials but no "
+                        "resume state — would restart trajectories")
+                res = train_vae_vmapped_sharded(
+                    model, x_cal, x_val, grp_lrs, grp_wds, grp_betas, mesh,
+                    epochs=delta, batch_size=arch[7], loss_type=arch[8],
+                    spec_stats=spec_stats, cfg_seeds=seeds)
+            else:
+                res = train_vae_vmapped(
+                    model, x_cal, x_val, grp_lrs, grp_wds, grp_betas,
+                    epochs=delta, batch_size=arch[7], loss_type=arch[8],
+                    spec_stats=spec_stats, cfg_seeds=seeds, init_state=init,
+                    epoch_offset=grp[0]["epochs"], device=device)
             vls = np.asarray(res.val_losses)            # (n_grp, delta)
             for j, tr in enumerate(grp):
                 tr["epochs"] = target

@@ -361,8 +361,9 @@ def bohb_vae_search(x_cal, x_val, space: Optional[Mapping] = None,
     by ``sweep.asha_vae_search`` (seed ``seed + b``), whose rungs train
     each architecture group as one stacked module.  After a bracket every
     trial's best validation loss, at whatever budget halving granted it,
-    is told back to the sampler.  ``mesh`` raises, as in
-    ``asha_vae_search``.
+    is told back to the sampler.  ``mesh`` (a ``parallel.mesh.Mesh`` with
+    a ``'model'`` axis) goes to ``asha_vae_search``: each bracket's fresh
+    rungs train config-sharded across its ranks.
 
     Returns ``{"best_config", "best_value", "best_bundle", "history",
     "total_epochs"}``; ``history`` holds one entry per bracket.

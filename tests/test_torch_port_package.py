@@ -45,7 +45,10 @@ def test_import_pulls_in_no_jax():
             "ocm_tpu_torch.utils.sweep, ocm_tpu_torch.utils.tpe, "
             "ocm_tpu_torch.cli, ocm_tpu_torch.server, ocm_tpu_torch.config, "
             "ocm_tpu_torch.models.torch_import, "
-            "ocm_tpu_torch.models.torch_export; "
+            "ocm_tpu_torch.models.torch_export, "
+            "ocm_tpu_torch.parallel.mesh, ocm_tpu_torch.parallel.simca_dist, "
+            "ocm_tpu_torch.parallel.sweep_dist, "
+            "ocm_tpu_torch.parallel.train_dist; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ocm_tpu', 'ml_dtypes', 'flax', 'msgpack', 'orbax', "
             "'h5py', 'matplotlib', 'scipy', 'sklearn')]; "
@@ -58,11 +61,12 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("module", ["ocm_tpu_torch.cli",
-                                    "ocm_tpu_torch.server"])
+                                    "ocm_tpu_torch.server",
+                                    "ocm_tpu_torch.parallel"])
 def test_front_doors_load_no_heavy_dependency(module):
-    """The CLI and the server load scipy, h5py and matplotlib only in the
-    commands that use them, and never sklearn (the card's machine has
-    neither sklearn nor h5py)."""
+    """The CLI, the server and the parallel package load scipy, h5py and
+    matplotlib only in the commands that use them, and never sklearn (the
+    card's machine has neither sklearn nor h5py)."""
     code = (f"import sys, {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('sklearn', 'scipy', 'h5py', 'matplotlib', 'jax', 'ocm_tpu')]; "
@@ -1176,3 +1180,81 @@ def test_bn_kernels_side_by_side_equal_each_models_own(cuda, shape):
         for got, want in ((out[:, ch], o), (mean[ch], m), (var[ch], v),
                           (dx[:, ch], d[0]), (dg[ch], d[1]), (db[ch], d[2])):
             assert torch.equal(got, want)
+
+
+def _card_rank(rank, world, backend, init_file, results):
+    """One rank of ``test_parallel_mesh_on_the_card`` on ``cuda:0``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, init_method=f"file://{init_file}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=120))
+        try:
+            from ocm_tpu_torch.parallel import mesh as PM
+            from ocm_tpu_torch.parallel import simca_dist as PD
+
+            mesh = PM.make_mesh()
+            dev = mesh.device
+            s = mesh.psum(torch.full((3,), rank + 1.0, device=dev), "data")
+            g = mesh.all_gather(torch.full((2,), float(rank), device=dev),
+                                "data")
+            rng = np.random.default_rng(0)
+            x = (rng.normal(1, .1, (256, 1)) * np.sin(np.linspace(0, 6, 60))
+                 + rng.normal(0, .02, (256, 60))).astype(np.float32)
+            model = PD.fit_simca_sharded(x, np.ones(256, np.float32), 4, mesh)
+            ref = TS.fit_simca_masked(torch.as_tensor(x, device=dev),
+                                      torch.ones(256, device=dev), 4)
+            kernels.t2q_scores_multiclass.launches = 0
+            acc, _, _, _ = PD.predict_sharded(model, x, mesh)
+            torch.cuda.synchronize()
+            results.put((rank, "ok", (
+                s.cpu().tolist(), g.cpu().tolist(), float(model.d_limit),
+                float(ref.d_limit), kernels.t2q_scores_multiclass.launches,
+                acc.shape[0])))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, "err", traceback.format_exc()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_parallel_mesh_on_the_card(cuda, tmp_path, backend, world):
+    """The mesh on the card: a single-rank NCCL group, and two gloo ranks
+    sharing ``cuda:0`` with CUDA tensors.  The all-reduce and the tiled
+    gather are exact, the sharded fit's limit is the local masked fit's
+    within 1e-4, and each rank scores its rows with one K1 launch."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_card_rank, args=(
+        r, world, backend, str(tmp_path / "store"), results))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    outs = [None] * world
+    try:
+        for _ in range(world):
+            try:
+                rank, status, value = results.get(timeout=180)
+            except queue.Empty:
+                pytest.fail("a rank gave no answer within 180 s")
+            assert status == "ok", value
+            outs[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for s, g, d_limit, d_ref, launches, n in outs:
+        assert s == [float(sum(range(1, world + 1)))] * 3
+        assert g == [float(r) for r in range(world) for _ in range(2)]
+        assert abs(d_limit - d_ref) <= 1e-4 * abs(d_ref)
+        assert launches == 1 and n == 256 // world

@@ -188,7 +188,7 @@ def test_scorer_validation_errors(classes):
         VAEScorer(tm, tbs[0], compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bfloat16"):
         VAEScorer(tm, tbs[0], compute_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         VAEScorer(tm, tbs[0], mesh=object())
     # a reference .pth is served since models/torch_import.py's port
     # (tests/test_torch_port_torch_io.py); a missing file raises

@@ -255,7 +255,7 @@ def test_scorer_validation_errors(data):
                     center=np.zeros(LENGTH, np.float32))
     with pytest.raises(ValueError, match="center must be"):
         SIMCAScorer(port, center=np.zeros(LENGTH + 1, np.float32))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         SIMCAScorer(port, mesh=object())
 
 

@@ -519,7 +519,7 @@ def test_asha_validates_arguments():
         TS.asha_vae_search(x, x, n_trials=0)
     with pytest.raises(ValueError, match="min_epochs"):
         TS.asha_vae_search(x, x, max_epochs=6, min_epochs=9)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         TS.asha_vae_search(x, x, mesh=object())
 
 

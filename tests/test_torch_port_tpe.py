@@ -308,7 +308,7 @@ def test_bohb_vae_search_end_to_end(spectra):
     assert out["best_value"] == min(h["best_value"] for h in out["history"])
     with pytest.raises(ValueError, match="n_brackets"):
         TTPE.bohb_vae_search(x_cal, x_val, space=SPACE_VAE, n_brackets=0)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         TTPE.bohb_vae_search(x_cal, x_val, space=SPACE_VAE, mesh=object())
 
 
