@@ -50,7 +50,13 @@ from ocm_tpu_torch.models.vae import ConvVAE1D
 from ocm_tpu_torch.models.vaesimca import predict_vaesimca
 from ocm_tpu_torch.stats.limits import LimitResult
 from ocm_tpu_torch.stats.qhf import qhf_batch_host
-from ocm_tpu_torch.utils import native
+from ocm_tpu_torch.utils import native, profiling
+
+
+def _concat(outs: list) -> dict:
+    if not outs:
+        return {}
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
 
 def _pad_chunk(chunk: np.ndarray, size: int):
@@ -87,42 +93,49 @@ class _ChunkedScorer:
         self._fn, self._post, self._gathered = decide_fn, post_fn, gathered_fn
 
     def _fetch(self, res, n: int) -> dict:
-        out = {k: v.cpu().numpy() for k, v in res.items()}
-        if self._post is not None:
-            out = self._post(out)
-        return {k: a[:n] for k, a in out.items()}
+        with profiling.span("serving.fetch"):
+            out = {k: v.cpu().numpy() for k, v in res.items()}
+            if self._post is not None:
+                out = self._post(out)
+            return {k: a[:n] for k, a in out.items()}
 
     def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
         raise NotImplementedError
 
     def _decide(self, *args):
-        with torch.inference_mode():
+        with profiling.span("serving.decide"), torch.inference_mode():
             out = self._fn(*args)
             if self._mesh is not None:
                 out = {k: self._mesh.all_gather(v, "data", k)
                        for k, v in out.items()}
             return out if self._gathered is None else self._gathered(out)
 
-    def _prep(self, x, start):
-        chunk, n = _pad_chunk(x[start:start + self.chunk_size],
-                              self.chunk_size)
-        if self._mesh is not None:
-            chunk = chunk[self._mesh.rows(self.chunk_size, "data")]
-        return self._prepare_chunk(chunk), n
+    def _prep(self, x, start, parent=None):
+        """One chunk padded and on the device; ``parent``: the caller's
+        ``serving.score`` span where this runs on the prefetch worker."""
+        with profiling.span("serving.input", parent):
+            chunk, n = _pad_chunk(x[start:start + self.chunk_size],
+                                  self.chunk_size)
+            if self._mesh is not None:
+                chunk = chunk[self._mesh.rows(self.chunk_size, "data")]
+            args = self._prepare_chunk(chunk)
+            profiling.count("serving.h2d_bytes", sum(t.nbytes for t in args))
+            return args, n
 
     def prepare(self, x) -> list:
         """Ingest once, score many: pad and place every chunk on the device
         now and return the list; ``score_prepared`` then only decides.  All
         chunks are resident at once; for a one-shot screen larger than the
         device memory use ``score``."""
-        x = np.asarray(x)
-        return [self._prep(x, s) for s in range(0, x.shape[0], self.chunk_size)]
+        with profiling.span("serving.prepare"):
+            x = np.asarray(x)
+            return [self._prep(x, s)
+                    for s in range(0, x.shape[0], self.chunk_size)]
 
     def score_prepared(self, prepared: list) -> dict:
-        outs = [self._fetch(self._decide(*args), n) for args, n in prepared]
-        if not outs:
-            return {}
-        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+        with profiling.span("serving.score"):
+            return _concat([self._fetch(self._decide(*args), n)
+                            for args, n in prepared])
 
     def score(self, x, prefetch: int = 1) -> dict:
         """Score an (N, L) array in fixed-size chunks; returns a dict of
@@ -133,7 +146,19 @@ class _ChunkedScorer:
         to the device while the current one is decided (kernels are
         enqueued asynchronously; the fetch waits); 0 runs sequentially.
         A single chunk never starts the worker.
+
+        While tracing is on (``utils.profiling``), the call records the
+        spans ``serving.score``, and per chunk ``serving.input``,
+        ``serving.wait_input`` (with a worker), ``serving.decide`` and
+        ``serving.fetch``, and counts ``serving.h2d_bytes``: the worker
+        records exactly when its caller does.
         """
+        with profiling.span("serving.score") as call:
+            # the call's locals (pool, futures, chunks) are freed when
+            # _score returns, inside the span
+            return self._score(x, prefetch, call)
+
+    def _score(self, x, prefetch: int, call) -> dict:
         x = np.asarray(x)
         starts = list(range(0, x.shape[0], self.chunk_size))
         outs: list = []
@@ -141,25 +166,24 @@ class _ChunkedScorer:
             for start in starts:
                 args, n = self._prep(x, start)
                 outs.append(self._fetch(self._decide(*args), n))
-        else:
-            from collections import deque
-            from concurrent.futures import ThreadPoolExecutor
+            return _concat(outs)
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
 
-            with ThreadPoolExecutor(max_workers=1) as ex:
-                it = iter(starts)
-                # range first: zip(it, range) would drop one start from it
-                pending = deque(ex.submit(self._prep, x, s) for _, s in
-                                zip(range(1 + prefetch), it))
-                while pending:
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            it = iter(starts)
+            # range first: zip(it, range) would drop one start from it
+            pending = deque(ex.submit(self._prep, x, s, call) for _, s in
+                            zip(range(1 + prefetch), it))
+            while pending:
+                with profiling.span("serving.wait_input"):
                     args, n = pending.popleft().result()
-                    res = self._decide(*args)
-                    nxt = next(it, None)
-                    if nxt is not None:
-                        pending.append(ex.submit(self._prep, x, nxt))
-                    outs.append(self._fetch(res, n))
-        if not outs:
-            return {}
-        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+                res = self._decide(*args)
+                nxt = next(it, None)
+                if nxt is not None:
+                    pending.append(ex.submit(self._prep, x, nxt, call))
+                outs.append(self._fetch(res, n))
+        return _concat(outs)
 
     def score_stream(self, chunks: Iterable) -> Iterator[dict]:
         """One result dict per array of an iterable (e.g. camera frames)."""

@@ -5,8 +5,32 @@
   CUDA where there is a card) writing a Chrome/Perfetto trace of
   everything run inside to ``logdir/trace.json``; yields the profiler, so
   ``key_averages()`` can sum the kernels by name;
-- ``annotate(name)`` — a named range on the trace timeline
-  (``torch.profiler.record_function``) and, on a card, an NVTX range;
+- spans and counters, recorded in memory: ``span(name, parent=None,
+  **attrs)`` times the enclosed block and ``count(name, n)`` adds to a
+  counter (``annotate`` is ``span``).  They record only while tracing is
+  on: inside ``tracing()``, or on a thread where a ``torch.profiler`` is
+  recording.  Off, a span costs a flag check and records nothing.  On,
+  each span keeps its name, start and end (``time.perf_counter_ns``), its
+  thread, its id, its parent's id and its call's id (the id of its
+  outermost span; a span opened with ``parent=`` on another thread joins
+  that span's call), the counts made inside it, and whether it opened a
+  profiler range of its name (a ``record_function``, through torch's
+  one-call binding), which it does on a thread where the profiler records
+  (so the profiler's trace shows it as an operator of that name); on a
+  card it also pushes an NVTX range (Nsight Systems shows it).
+  ``spans()``, ``counters()`` and ``dropped()`` read what was recorded,
+  ``reset()`` clears it; the buffer holds ``CAPACITY`` spans and counts
+  the spans it had no room for.  ``to_profiler_time(spans, events)`` puts
+  spans on the clock of a profiler's events.
+  ``serving``'s scorers record, per call of ``score`` or
+  ``score_prepared``: ``serving.score`` (the call), and per chunk
+  ``serving.input`` (pad, host stage and copy to the device, on the
+  prefetch worker where there is one), ``serving.wait_input`` (the caller
+  waiting for the worker), ``serving.decide`` (the enqueue under
+  ``inference_mode``) and ``serving.fetch`` (device to host, the host
+  epilogue, the cut); ``prepare`` records ``serving.prepare`` and its
+  chunks' ``serving.input``; the counter ``serving.h2d_bytes`` counts the
+  bytes put on the device;
 - ``timeit`` — wall-clock timing that synchronizes every device its
   outputs lie on, so asynchronous launches cannot fake speed, after a
   warm-up that excludes first-call costs (kernel builds, allocator growth);
@@ -19,11 +43,25 @@
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Callable, Optional
+from collections import defaultdict
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
+
+_profiler_on = torch._C._autograd._profiler_enabled   # this thread's flag
+# a profiler range from one C++ call (record_function's Python op costs
+# about ten times as much); the same range, shown under its name
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast",
+                 torch.profiler.record_function)
+
+CAPACITY = 1 << 17          # spans the buffer holds; later ones are dropped
+FIT_TOLERANCE_NS = 20_000   # pairs further off the fitted clock are left out
+MAX_DRIFT = 1e-4            # of one clock against the other, at most
 
 
 @contextlib.contextmanager
@@ -39,18 +77,247 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named range on the trace timeline (and an NVTX range on a card)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
+class Span(NamedTuple):
+    """One recorded span; times in ns of ``time.perf_counter_ns`` (of the
+    profiler's clock after ``to_profiler_time``)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    id: int
+    parent: Optional[int]
+    call: int
+    marked: bool            # opened a record_function of its name
+    attrs: dict
+    counts: dict
+
+
+class _Recorder:
+    """The process's span buffer and counter totals."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.tracing = 0            # depth of open ``tracing()`` blocks
+        self.spans: list = []
+        self.counts: dict = defaultdict(int)
+        self.dropped = 0
+        self.nvtx = None            # decided at the first recorded span
+
+    def close(self, rec: Span):
+        """Keep an ended span (or count it dropped); one fewer open."""
+        global _LIVE
+        with self.lock:
+            _LIVE -= 1
+            if len(self.spans) < CAPACITY:
+                self.spans.append(rec)
+            else:
+                self.dropped += 1
+
+
+class _Stack(threading.local):
+    def __init__(self):
+        self.open = []              # this thread's open spans, innermost last
+
+
+_REC = _Recorder()
+_TLS = _Stack()
+_LIVE = 0   # open tracing() blocks + recorded spans open on any thread
+_IDS = itertools.count(1)
+_OFF = contextlib.nullcontext()
+
+
+class _Open:
+    """A span being recorded; ``with span(...) as s`` binds it, and ``s``
+    is the ``parent=`` that hands its call to another thread."""
+
+    __slots__ = ("name", "parent", "attrs", "id", "call", "start", "rf",
+                 "counts")
+
+    def __init__(self, name: str, parent, attrs: dict):
+        self.name, self.parent, self.attrs = name, parent, attrs
+        self.counts = None
+
+    def __enter__(self):
+        self.id = next(_IDS)
+        self.call = self.id if self.parent is None else self.parent.call
+        _TLS.open.append(self)
+        _opened()
+        self.start = time.perf_counter_ns()
+        if _REC.nvtx is None:
+            _REC.nvtx = torch.cuda.is_available()
+        if _REC.nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        self.rf = None
+        if _profiler_on():
+            self.rf = _RANGE(self.name)
+            self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        if _REC.nvtx:
             torch.cuda.nvtx.range_pop()
+        end = time.perf_counter_ns()
+        _TLS.open.pop()
+        _REC.close(Span(self.name, self.start, end, threading.get_ident(),
+                      self.id, None if self.parent is None else
+                      self.parent.id, self.call, self.rf is not None,
+                      self.attrs, dict(self.counts or {})))
+        return False
+
+
+def _opened() -> None:
+    global _LIVE
+    with _REC.lock:
+        _LIVE += 1
+
+
+def span(name: str, parent=None, **attrs):
+    """Record the enclosed block as a span named ``name`` (with ``attrs``)
+    while tracing is on (``tracing()``, or a profiler recording on this
+    thread), or inside a recorded span, whose child it becomes; otherwise
+    a shared no-op context.  ``parent``: a recorded span (what ``with
+    span(...) as s`` bound, None where that span was off) of which this
+    one is a child, also on another thread: so a worker records exactly
+    when its caller does."""
+    if parent is None:
+        if not (_LIVE or _profiler_on()):
+            return _OFF
+        stack = _TLS.open
+        if stack:
+            parent = stack[-1]
+        elif not (_REC.tracing or _profiler_on()):
+            return _OFF
+    return _Open(name, parent, attrs)
+
+
+annotate = span
+
+
+def count(name: str, n) -> None:
+    """Add ``n`` to the counter ``name`` (and to the innermost open span's
+    counts), under ``span``'s switch."""
+    if not (_LIVE or _profiler_on()):
+        return
+    stack = _TLS.open
+    if not stack and not (_REC.tracing or _profiler_on()):
+        return
+    with _REC.lock:
+        _REC.counts[name] += n
+        if stack:
+            top = stack[-1]
+            if top.counts is None:
+                top.counts = defaultdict(int)
+            top.counts[name] += n
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record spans and counts on every thread inside the block (they also
+    record, without it, on a thread where a ``torch.profiler`` records)."""
+    global _LIVE
+    with _REC.lock:
+        _REC.tracing += 1
+        _LIVE += 1
+    try:
+        yield
+    finally:
+        with _REC.lock:
+            _REC.tracing -= 1
+            _LIVE -= 1
+
+
+def spans() -> list:
+    """The recorded spans (``Span``), in the order they ended."""
+    with _REC.lock:
+        return list(_REC.spans)
+
+
+def counters() -> dict:
+    """The counters' totals."""
+    with _REC.lock:
+        return dict(_REC.counts)
+
+
+def dropped() -> int:
+    """Spans that ended while the buffer was full (``CAPACITY``)."""
+    return _REC.dropped
+
+
+def reset() -> None:
+    """Clear the recorded spans, the counters and ``dropped``."""
+    with _REC.lock:
+        _REC.spans.clear()
+        _REC.counts.clear()
+        _REC.dropped = 0
+
+
+def to_profiler_time(recorded, events) -> list:
+    """The spans of the calls that a ``torch.profiler`` saw, on the clock
+    of its events.
+
+    ``recorded``: spans (``spans()``); ``events``: the profiler's host
+    events as (name, start_ns, end_ns), e.g. from
+    ``prof.profiler.kineto_results.events()``.  A span that opened a
+    ``record_function`` has an event of its name: the latest such spans
+    of each name are paired, in order, with the latest events of that
+    name (so spans of earlier profiled runs find none).  The profiler's
+    clock is fitted as a line in the spans' clock through the pairs'
+    midpoints (its slope by least squares, within ``MAX_DRIFT``, its
+    offset the median's), in passes that leave out the pairs off the last
+    line by more than a band that narrows to ``FIT_TOLERANCE_NS`` (a
+    profiler's slow first entry, a thread switch inside a span's entry).
+    Every span of a call that has a pair left is returned, its start and
+    end on that line, in order of start.  [] where nothing pairs; raises
+    ValueError where fewer than half the pairs agree on one line (the
+    spans and events are not of one run)."""
+    theirs = defaultdict(list)
+    for name, s, e in events:
+        theirs[name].append((s, e))
+    mine = defaultdict(list)
+    for sp in recorded:
+        if sp.marked:
+            mine[sp.name].append(sp)
+    pairs = []
+    for name, ours in mine.items():
+        ev = sorted(theirs.get(name, ()))
+        n = min(len(ours), len(ev))
+        if n:
+            ours.sort(key=lambda sp: sp.start_ns)
+            pairs += zip(ours[len(ours) - n:], ev[len(ev) - n:])
+    if not pairs:
+        return []
+    x = np.array([(sp.start_ns + sp.end_ns) // 2 for sp, _ in pairs],
+                 np.int64)
+    d = np.array([(s + e) // 2 for _, (s, e) in pairs], np.int64) - x
+    x0, d0 = int(x.min()), int(np.median(d))
+    u, v = (x - x0).astype(np.float64), (d - d0).astype(np.float64)
+    keep = np.abs(v) <= 50 * FIT_TOLERANCE_NS
+    # each pass fits the kept pairs and keeps those near the line, in a
+    # narrower band, so that a few slow entries cannot tilt the last fit
+    for band in (10, 2.5, 1):
+        if keep.sum() < max(1, len(pairs) / 2):
+            break
+        slope = 0.0
+        if np.ptp(u[keep]) > 0:
+            slope = float(np.clip(np.polyfit(u[keep], v[keep], 1)[0],
+                                  -MAX_DRIFT, MAX_DRIFT))
+        icpt = float(np.median(v[keep] - slope * u[keep]))
+        keep = np.abs(v - (icpt + slope * u)) <= band * FIT_TOLERANCE_NS
+    if keep.sum() < max(1, len(pairs) / 2):
+        raise ValueError(
+            f"{int(keep.sum())} of {len(pairs)} span/event pairs agree on "
+            "one clock: the spans are not of the profiled run")
+    calls = {pairs[i][0].call for i in np.flatnonzero(keep)}
+
+    def at(t: int) -> int:
+        return t + d0 + int(round(icpt + slope * (t - x0)))
+
+    return sorted((sp._replace(start_ns=at(sp.start_ns), end_ns=at(sp.end_ns))
+                   for sp in recorded if sp.call in calls),
+                  key=lambda sp: sp.start_ns)
 
 
 def _devices(out, found: set) -> set:
