@@ -57,6 +57,30 @@
 // (K2) and 2.3-2.8x (K3) their bounds: a shape's read, cluster barrier and
 // write run one after the other in one wave, and a launch alone takes ~2
 // us.
+//
+// Eval mode (K9, bn_act_eval_kernel): the epilogue of a convolution whose
+// bias was left out, with the running statistics instead of the batch's,
+//
+//   out = act((((x + bias) - mean) * mul) + beta),  mul = rsqrt(var + eps)
+//   * gamma (computed by the caller, a C-length op),
+//
+// in place or into `out`.  It replaces the eager chain conv bias add, x -
+// mean, * mul, + beta, act: five passes over the activation, where this
+// is one.  The four operations are the chain's own, in its order, each
+// rounded on its own (__fadd_rn / __fsub_rn / __fmul_rn: nvcc may not
+// contract them into an FMA), and ELU is torch's expm1f, so with ELU and
+// none the output equals the chain's bit for bit (exact GELU: within 2
+// ulp of torch's).  Nothing is reduced: bytes bound it, 8
+// B an element, 0.36 ms for the nuts screens' 16,384 x 9,216-float
+// activations at 3.35 TB/s.  Each thread takes one vector of the flat (B,
+// C, L) array, in a grid of as many blocks as the vectors fill (at those
+// shapes 0.40 ms, 90 % of the bound, as fast as torch's copy of the same
+// bytes; grid-stride loops over the resident blocks, 1-8 vectors a thread
+// in flight, with or without streaming cache hints, read 0.43-0.45 ms,
+// 80-84 %; PERF.md section 6).  Vectors are 16 bytes where L % 4 == 0 and x
+// and out are 16-byte aligned, 8 bytes where L % 2 == 0, else 4, as in
+// K2, so a vector lies in one row; its channel is (i / L) % C of its
+// first element i.
 
 #include <cuda_runtime.h>
 
@@ -404,6 +428,64 @@ int launch_bwd(const float* x, const float* gamma, const float* beta,
   }
 }
 
+// One element of the eval epilogue, in the eager chain's order and
+// rounding.
+template <int A>
+__device__ __forceinline__ float eval_epilogue(float v, float bias,
+                                              float mean, float mul,
+                                              float beta) {
+  return act<A>(
+      __fadd_rn(__fmul_rn(__fsub_rn(__fadd_rn(v, bias), mean), mul), beta));
+}
+
+struct EvalParams {
+  const float* __restrict__ bias;
+  const float* __restrict__ mean;
+  const float* __restrict__ mul;
+  const float* __restrict__ beta;
+  unsigned nc, nl;
+};
+
+// One vector of V elements a thread (L % V == 0, so a vector lies in one
+// row: one channel).  x and out may be the same array (in place): each
+// element is read once, by the thread that writes it, before it writes it.
+template <int A, int V>
+__global__ void __launch_bounds__(kThreads)
+    bn_act_eval_kernel(const float* x, float* out, EvalParams p,
+                       unsigned n) {
+  const unsigned q = blockIdx.x * kThreads + threadIdx.x;
+  if (q >= n / V) return;
+  const unsigned c = q * V / p.nl % p.nc;
+  const float b = __ldg(p.bias + c), m = __ldg(p.mean + c),
+              k = __ldg(p.mul + c), s = __ldg(p.beta + c);
+  float v[V];
+  load_vec<V>(x + (size_t)q * V, v);
+#pragma unroll
+  for (int e = 0; e < V; ++e) v[e] = eval_epilogue<A>(v[e], b, m, k, s);
+  store_vec<V>(out + (size_t)q * V, v);
+}
+
+template <int A, int V>
+int launch_eval_v(const float* x, float* out, const EvalParams& p,
+                  unsigned n, cudaStream_t stream) {
+  bn_act_eval_kernel<A, V><<<(n / V + kThreads - 1) / kThreads, kThreads, 0,
+                             stream>>>(x, out, p, n);
+  return (int)cudaGetLastError();
+}
+
+template <int A>
+int launch_eval(const float* x, float* out, const EvalParams& p, unsigned n,
+                cudaStream_t stream) {
+  switch (vec_width(p.nl, addr_bits(x) | addr_bits(out))) {
+    case 4:
+      return launch_eval_v<A, 4>(x, out, p, n, stream);
+    case 2:
+      return launch_eval_v<A, 2>(x, out, p, n, stream);
+    default:
+      return launch_eval_v<A, 1>(x, out, p, n, stream);
+  }
+}
+
 bool bad_shape(int nb, int nc, int nl, int act, int cluster) {
   return nb < 1 || nc < 1 || nl < 1 || act < kElu || act > kNone ||
          cluster < 1 || cluster > 8;
@@ -452,6 +534,30 @@ int bn_act_bwd_f32(const float* x, const float* gamma, const float* beta,
     default:
       return launch_bwd<kNone>(x, gamma, beta, mean, var, dout, dx, dgamma,
                                dbeta, nb, nc, nl, eps, cluster, s);
+  }
+}
+
+// x, out (B, C, L), out == x for the in-place call; bias, mean, mul, beta
+// (C,).  One launch on `stream`; returns the launch's error, or
+// cudaGetLastError() after it (0 = ok).  The kernel indexes in 32 bits:
+// a batch of more than 2^31 - 1 elements is refused, and the caller
+// launches it a slice of rows at a time (ops/bn.py, K9_MAX_ELEMENTS).
+int bn_act_eval_f32(const float* x, const float* bias, const float* mean,
+                    const float* mul, const float* beta, float* out, int nb,
+                    int nc, int nl, int act, void* stream) {
+  if (bad_shape(nb, nc, nl, act, 1) ||
+      (long long)nb * nc * nl > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const EvalParams p{bias, mean, mul, beta, (unsigned)nc, (unsigned)nl};
+  const unsigned n = (unsigned)nb * nc * nl;
+  switch (act) {
+    case kElu:
+      return launch_eval<kElu>(x, out, p, n, s);
+    case kGelu:
+      return launch_eval<kGelu>(x, out, p, n, s);
+    default:
+      return launch_eval<kNone>(x, out, p, n, s);
   }
 }
 

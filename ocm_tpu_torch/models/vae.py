@@ -10,8 +10,14 @@ them.
 Training-mode BatchNorm + activation runs through ``fused_bn_act`` (kernels
 K2/K3 on the card) and the reparameterization through
 ``fused_reparam_kl`` (K4), or, for a forward given a seed instead of
-noise, through ``reparam_kl_sample`` (K5, noise drawn in the kernel); eval-mode BatchNorm normalises with the
-running statistics in plain elementwise torch, as the JAX module does.
+noise, through ``reparam_kl_sample`` (K5, noise drawn in the kernel).
+Eval-mode BatchNorm normalises with the running statistics, as the JAX
+module does: in ``encode`` and ``decode``, each conv block runs as the
+convolution without its bias and one ``bn_act_eval``, which adds the bias,
+normalises and activates in one pass of kernel K9, where K9 has the block
+to compute (float32 on the card, outside autograd and autocast), and as
+the modules themselves, in plain elementwise torch, everywhere else
+(``conv_bn_act_eval``).
 BatchNorm follows flax, not ``nn.BatchNorm1d``: the running update is
 ``0.9 * running + 0.1 * batch`` with the biased fast variance.
 Convolutions and dense layers are ``torch.nn.functional`` calls (cuDNN and
@@ -29,9 +35,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ocm_tpu_torch.ops import bn as bn_ops
 from ocm_tpu_torch.ops.bn import (apply_act, bn_act_normalize,
                                   cross_replica_bn_act, fused_bn_act)
 from ocm_tpu_torch.ops.kernels import fused_reparam_kl, reparam_kl_sample
+from ocm_tpu_torch.utils import profiling
 
 
 def conv_out_length(length: int, kernel_size: int, stride: int) -> int:
@@ -135,6 +143,38 @@ class BatchNormAct(nn.Module):
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
             self.num_batches_tracked += 1
         return out
+
+
+def _conv_without_bias(conv, h):
+    """What ``conv`` (a Conv1d or ConvTranspose1d) computes from h, less its
+    bias: the call its ``forward`` makes, with the bias left out."""
+    if isinstance(conv, nn.ConvTranspose1d):
+        return F.conv_transpose1d(h, conv.weight, None, conv.stride,
+                                  conv.padding, conv.output_padding,
+                                  conv.groups, conv.dilation)
+    return F.conv1d(h, conv.weight, None, conv.stride, conv.padding,
+                    conv.dilation, conv.groups)
+
+
+def conv_bn_act_eval(conv, norm: BatchNormAct, h):
+    """An eval-mode conv block, ``norm(conv(h))``.  Where K9 has the block's
+    epilogue to compute (``ops.bn.eval_kernel_applies``), the convolution
+    runs without its bias and ``bn_act_eval`` adds it, normalises and
+    activates in the kernel's one pass over the conv's output; elsewhere
+    the two modules run as they are.  The choice adds 1 to the counter
+    ``model.bn_act_eval_fused`` or ``model.bn_act_eval_plain``
+    (``utils.profiling.count``, recorded while tracing).  On the card,
+    where torch adds a convolution's bias in a pass of its own, both give
+    the same bits with ELU and none, and agree within 2 ulp with GELU."""
+    if bn_ops.eval_kernel_applies(h, conv.weight, conv.bias, norm.weight,
+                                  norm.bias, norm.running_mean,
+                                  norm.running_var):
+        profiling.count("model.bn_act_eval_fused", 1)
+        return bn_ops.bn_act_eval(_conv_without_bias(conv, h), conv.bias,
+                                  norm.running_mean, norm.running_var,
+                                  norm.weight, norm.bias, norm.eps, norm.act)
+    profiling.count("model.bn_act_eval_plain", 1)
+    return norm(conv(h))
 
 
 class ConvVAE1D(nn.Module):
@@ -243,9 +283,24 @@ class ConvVAE1D(nn.Module):
         default generator of the input's device)."""
         self._rng.generator = generator
 
+    def _conv_stack(self, layers: nn.Sequential, h):
+        """``layers(h)``; in eval mode, each conv followed by a
+        ``BatchNormAct`` runs as one ``conv_bn_act_eval``."""
+        if self.training or not self.use_batchnorm:
+            return layers(h)
+        mods, i = list(layers), 0
+        while i < len(mods):
+            if i + 1 < len(mods) and isinstance(mods[i + 1], BatchNormAct):
+                h = conv_bn_act_eval(mods[i], mods[i + 1], h)
+                i += 2
+            else:
+                h = mods[i](h)
+                i += 1
+        return h
+
     def encode(self, x):
         """Standardized spectra (B, L) -> (mu, logvar)."""
-        h = self.encoder_conv(x.unsqueeze(1)).flatten(1)
+        h = self._conv_stack(self.encoder_conv, x.unsqueeze(1)).flatten(1)
         h = self.fc(h)
         return self.fc_mu(h), self.fc_logvar(h)
 
@@ -257,7 +312,7 @@ class ConvVAE1D(nn.Module):
         """Latent (B, k) -> standardized spectra (B, L), cropped or
         zero-padded to ``input_length``."""
         h = self.fc_dec(z).view(z.shape[0], *self.enc_shape)
-        x_rec = self.decoder_conv(h).squeeze(1)
+        x_rec = self._conv_stack(self.decoder_conv, h).squeeze(1)
         out_len = x_rec.shape[-1]
         if out_len > self.input_length:
             return x_rec[..., :self.input_length]

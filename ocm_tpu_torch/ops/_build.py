@@ -48,6 +48,7 @@ ENTRY_POINTS = {
     "int8_gemm_s32": [_P] * 3 + [_I] * 4 + [_P],
     "bn_act_fwd_f32": [_P] * 6 + [_I] * 3 + [_F, _I, _I, _P],
     "bn_act_bwd_f32": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P],
+    "bn_act_eval_f32": [_P] * 6 + [_I] * 4 + [_P],
     # reparam: pointers, n, k, (dz and dkl strides,) (seed, offset,) then
     # reparam_plan's lanes, rows, blocks and vector bytes
     "reparam_kl_f32": [_P] * 5 + [_I] * 6 + [_P],

@@ -20,6 +20,14 @@ wrappers compute the plain twins ``bn_act_fwd_plain``/``bn_act_bwd_plain``
 (same formulas), on a CUDA tensor they launch or raise.  There is no size
 gate: the card has no counterpart of the TPU kernel's VMEM budget.
 
+``bn_act_eval`` is the eval-mode epilogue of a convolution: its bias,
+BatchNorm with the running statistics, and the activation, in one pass of
+kernel K9 (``bn_act_eval_f32``, the same source) over a contiguous f32
+CUDA tensor; ``eval_kernel_applies`` says where K9 has it to compute
+(float32 on the card, outside autograd and autocast), and the callers run
+the modules' eager chain elsewhere.  K9 gives the chain's bits with ELU
+and none, and exact GELU within 2 ulp of torch's.
+
 ``cross_replica_bn_act`` is the data-parallel form (``ocm_tpu``'s
 ``bn_axis_name``, ``bn.py:173-183``): the batch mean and mean square are
 averaged over ranks by the caller's ``pmean``, and the backward averages
@@ -43,6 +51,9 @@ ACTS = ("elu", "gelu", "none")
 # keeps in registers (of x, and of dout in K3), the largest portable
 # cluster, and the blocks it aims for (two a SM of an H100's 132)
 K2_THREADS, K2_ITEMS, K2_MAX_CLUSTER, K2_BLOCKS = 256, 16, 8, 256
+# the most elements one launch of K9 (bn_act_eval_fused) takes: it
+# indexes the flat (B, C, L) array in 32 bits
+K9_MAX_ELEMENTS = 2**31 - 1
 
 
 def _act_code(act: str) -> int:
@@ -224,6 +235,99 @@ def bn_act_bwd(x, gamma, beta, mean, var, dout, eps: float = 1e-5,
 
 
 bn_act_bwd.launches = 0
+
+
+def eval_kernel_applies(x, *params) -> bool:
+    """Whether K9 computes the eval epilogue of x: a float32 CUDA tensor,
+    outside autocast, with nothing for autograd to record (grad mode off,
+    or neither x nor any of ``params`` requires grad), and each of
+    ``params`` (None or a tensor) float32 on x's device.  Elsewhere (the
+    CPU, float64, the bf16 twin's autocast, a graph to record) the kernel
+    has nothing to compute and the modules' own eager chain runs."""
+    if not x.is_cuda or x.dtype != torch.float32 \
+            or torch.is_autocast_enabled(x.device.type):
+        return False
+    grad = torch.is_grad_enabled()
+    for t in (x, *params):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.device != x.device \
+                or (grad and t.requires_grad):
+            return False
+    return True
+
+
+def bn_act_eval_plain(x, conv_bias, mean, var, gamma, beta, eps: float,
+                      act: str):
+    """Plain twin of ``bn_act_eval``: the eager chain, x + conv_bias (None:
+    nothing added), then ``bn_act_normalize``."""
+    if conv_bias is not None:
+        x = x + _per_channel(conv_bias, x)
+    return bn_act_normalize(x, mean, var, gamma, beta, eps, act)
+
+
+def bn_act_eval_fused(x, conv_bias, mean, mul, beta, act: str = "elu",
+                      out=None):
+    """K9: act(((x + conv_bias) - mean) * mul + beta) of x (B, C, L) on the
+    current stream, into ``out`` (default: x itself, in place); conv_bias,
+    mean, mul, beta (C,), ``mul`` being ``rsqrt(var + eps) * gamma``.
+    Returns ``out``.  The kernel indexes in 32 bits, so a batch of more
+    than ``K9_MAX_ELEMENTS`` elements runs as one launch per slice of rows
+    that fits.  Each operation is rounded as the eager chain rounds it, so
+    with ELU and none the result equals the chain's bit for bit; exact
+    GELU agrees with torch's within 2 ulp."""
+    code = _act_code(act)
+    if x.device.type != "cuda":
+        raise ValueError(f"bn_act_eval_fused launches on CUDA tensors, not "
+                         f"{x.device}; bn_act_eval_plain is its CPU twin")
+    out = x if out is None else out
+    vectors = {"conv_bias": conv_bias, "mean": mean, "mul": mul,
+               "beta": beta}
+    if x.dim() != 3 or out.shape != x.shape or x.numel() == 0:
+        _check("bn_act_eval", x, vectors, {"out": out})
+    nb, nc, nl = x.shape
+    if nc * nl > K9_MAX_ELEMENTS:
+        raise ValueError(f"bn_act_eval: one row of {tuple(x.shape)} holds "
+                         f"more than {K9_MAX_ELEMENTS} elements")
+    rows = K9_MAX_ELEMENTS // (nc * nl)
+    slices = [(x[b:b + rows], out[b:b + rows])
+              for b in range(0, max(nb, 1), rows)]
+    for xs, outs in slices:
+        _check("bn_act_eval", xs, vectors, {"out": outs})
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        for xs, outs in slices:
+            err = lib.bn_act_eval_f32(
+                xs.data_ptr(), conv_bias.data_ptr(), mean.data_ptr(),
+                mul.data_ptr(), beta.data_ptr(), outs.data_ptr(),
+                xs.shape[0], nc, nl, code, stream_of(x))
+            _build.check(err, "bn_act_eval")
+            bn_act_eval.launches += 1
+    return out
+
+
+def bn_act_eval(x, conv_bias, mean, var, gamma, beta, eps: float = 1e-5,
+                act: str = "elu"):
+    """Eval-mode conv epilogue: act(((x + conv_bias) - mean) * rsqrt(var +
+    eps) * gamma + beta) of x (B, C, L), the output of a convolution run
+    without its bias (``conv_bias`` None: nothing to add), with BatchNorm's
+    running statistics ``mean``/``var``.
+
+    On a CUDA tensor, K9 (``bn_act_eval_fused``) writes the result over x
+    and returns x, or raises on what it does not take (not float32, not
+    contiguous, not 3-d); the caller asks ``eval_kernel_applies`` first.
+    On a CPU tensor the plain twin ``bn_act_eval_plain`` (the same
+    operations) returns a new tensor.  ``bn_act_eval.launches`` counts
+    K9's launches."""
+    if not x.is_cuda:
+        return bn_act_eval_plain(x, conv_bias, mean, var, gamma, beta, eps,
+                                 act)
+    mul = torch.rsqrt(var + eps) * gamma.to(mean.dtype)
+    bias = torch.zeros_like(mean) if conv_bias is None else conv_bias
+    return bn_act_eval_fused(x, bias, mean, mul, beta, act)
+
+
+bn_act_eval.launches = 0
 
 
 class _FusedBNAct(torch.autograd.Function):

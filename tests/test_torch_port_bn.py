@@ -7,6 +7,8 @@ on ``(B, C, L)``.  The same seeded inputs go to both with the channel axis
 moved.  Tolerance: 1e-10 relative (f64; only the summation order differs).
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 
 from ocm_tpu.ops import bn as JB
 from ocm_tpu_torch.ops import bn as TB
+from torch_port_data import eval_kernel_on_cpu
 
 RTOL, ATOL = 1e-10, 1e-12
 # (B, C, L): ragged in every axis (JAX pads C to 8 and B*L to 128)
@@ -132,3 +135,93 @@ def test_unknown_activation_raises():
     x = torch.zeros(2, 3, 4)
     with pytest.raises(ValueError, match="unknown activation"):
         TB.fused_bn_act(x, torch.ones(3), torch.zeros(3), 1e-5, "relu")
+
+
+# --- the eval-mode conv epilogue: bn_act_eval (K9 on the card) --------------
+
+EVAL_SHAPES = [(4, 8, 16), (3, 5, 7)]        # L % 4 == 0, and not
+
+
+def _eval_inputs(shape, dtype, seed=6):
+    """x (B, C, L), conv bias, running mean and var, gamma, beta."""
+    gen = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    x = torch.randn(shape, generator=gen, dtype=dtype) * 1.5 + 0.3
+    vecs = [torch.randn(c, generator=gen, dtype=dtype) * 0.5,
+            torch.randn(c, generator=gen, dtype=dtype) * 0.3,
+            torch.rand(c, generator=gen, dtype=dtype) + 0.5,
+            torch.rand(c, generator=gen, dtype=dtype) + 0.5,
+            torch.randn(c, generator=gen, dtype=dtype) * 0.5]
+    return (x, *vecs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("shape", EVAL_SHAPES, ids=str)
+@pytest.mark.parametrize("act", JB.ACTS)
+def test_bn_act_eval_plain_is_the_eager_chain(act, shape, dtype):
+    """On a CPU tensor ``bn_act_eval`` is its plain twin, the eager chain
+    x + conv bias then ``bn_act_normalize``, in a new tensor."""
+    x, bias, mean, var, gamma, beta = _eval_inputs(shape, dtype)
+    ref = TB.bn_act_normalize(x + bias[:, None], mean, var, gamma, beta,
+                              1e-5, act)
+    src = x.clone()
+    got = TB.bn_act_eval(src, bias, mean, var, gamma, beta, 1e-5, act)
+    assert torch.equal(got, ref) and torch.equal(src, x)
+    assert torch.equal(TB.bn_act_eval_plain(x, bias, mean, var, gamma, beta,
+                                            1e-5, act), ref)
+    # no bias: nothing added
+    assert torch.equal(TB.bn_act_eval(x, None, mean, var, gamma, beta, 1e-5,
+                                      act),
+                       TB.bn_act_normalize(x, mean, var, gamma, beta, 1e-5,
+                                           act))
+
+
+def _autocast():
+    return torch.autocast("cpu", dtype=torch.bfloat16)
+
+
+# case -> (how x and the parameters are made, the context of the call,
+# whether K9 has the epilogue to compute on the card)
+EVAL_CASES = {
+    "f32": (lambda a: a, None, True),
+    "no_grad_mode": (lambda a: a, torch.no_grad, True),
+    "grad": (lambda a: a, None, False),
+    "f64": (lambda a: a.double(), None, False),
+    # any layout: the launch refuses a strided view (a card test)
+    "strided": (lambda a: a.transpose(1, 2).contiguous().transpose(1, 2),
+                None, True),
+    "autocast": (lambda a: a, _autocast, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EVAL_CASES))
+def test_bn_act_eval_takes_the_kernel_only_where_it_applies(monkeypatch,
+                                                            case):
+    """``eval_kernel_applies`` never gives a CPU tensor to K9; asked for
+    the same tensors as on the card (``eval_kernel_on_cpu``), it takes
+    float32 with nothing for autograd to record, and leaves float64,
+    autocast and a graph to record to the eager chain.  ``bn_act_eval``
+    of the CPU tensor is the twin in every case."""
+    make, context, fused = EVAL_CASES[case]
+    x, bias, mean, var, gamma, beta = _eval_inputs((3, 4, 10), torch.float32)
+    x, bias, mean, var, gamma, beta = (make(t) if t.dim() == 3 else
+                                       t.to(make(x).dtype) for t in
+                                       (x, bias, mean, var, gamma, beta))
+    if case in ("grad", "no_grad_mode"):
+        gamma.requires_grad_()
+    params = (bias, mean, var, gamma, beta)
+    ref = TB.bn_act_eval_plain(x, *params, 1e-5, "elu")
+    with (context or contextlib.nullcontext)():
+        on_cpu = TB.eval_kernel_applies(x, *params)
+        got = TB.bn_act_eval(x, *params, 1e-5, "elu")
+        eval_kernel_on_cpu(monkeypatch)
+        on_card = TB.eval_kernel_applies(x, *params)
+    assert not on_cpu and on_card == fused
+    assert torch.equal(got.detach(), ref.detach())
+    assert got.requires_grad == (case == "grad")
+
+
+def test_bn_act_eval_fused_refuses_cpu_tensors():
+    x, bias, mean, var, gamma, beta = _eval_inputs((2, 3, 4), torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        TB.bn_act_eval_fused(x, bias, mean, gamma, beta)

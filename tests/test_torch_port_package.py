@@ -1258,3 +1258,196 @@ def test_parallel_mesh_on_the_card(cuda, tmp_path, backend, world):
         assert g == [float(r) for r in range(world) for _ in range(2)]
         assert abs(d_limit - d_ref) <= 1e-4 * abs(d_ref)
         assert launches == 1 and n == 256 // world
+
+
+# --- K9: the eval-mode conv epilogue (bn_act_eval_fused) -------------------
+
+# (B, C, L, aligned): the nuts screens' three activations at their chunk of
+# 16,384 spectra (16-byte vectors), two of the entry model's (L 501: one
+# float a thread; L 126: 8-byte vectors), a tiny ragged one, and x off
+# 16- and 8-byte alignment (one float a thread)
+EVAL_CASES = [(16384, 32, 288, True), (16384, 64, 144, True),
+              (16384, 128, 72, True), (64, 32, 501, True),
+              (64, 128, 126, True), (7, 5, 3, True), (64, 32, 288, False)]
+
+
+def _eval_operands(nb, nc, nl, aligned, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    flat = torch.randn(nb * nc * nl + 1, generator=gen).mul_(1.5).add_(0.3)
+    flat = flat.to(dev)
+    x = (flat[:-1] if aligned else flat[1:]).view(nb, nc, nl)
+    bias, mean, beta = (torch.randn(nc, generator=gen).mul_(0.4).to(dev)
+                        for _ in range(3))
+    var, gamma = ((torch.rand(nc, generator=gen) + 0.5).to(dev)
+                  for _ in range(2))
+    return x, bias, mean, var, gamma, beta
+
+
+def _ulps(a, b):
+    """The largest distance of two float32 tensors in units in the last
+    place (same-signed values; exact zeros and sign changes count 0/1)."""
+    ia, ib = (t.contiguous().view(torch.int32).long() for t in (a, b))
+    return int((ia - ib).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", bn.ACTS)
+@pytest.mark.parametrize("case", EVAL_CASES, ids=str)
+def test_eval_epilogue_kernel_matches_the_eager_chain(cuda, case, act):
+    """K9 against the chain it replaces (the conv bias added as torch adds
+    it, then ``bn_act_normalize``): bit for bit with ELU and none, within
+    2 ulp with exact GELU; in place and into another tensor."""
+    x, bias, mean, var, gamma, beta = _eval_operands(*case, cuda)
+    assert (x.data_ptr() % 16 == 0) == case[3]
+    ref = bn.bn_act_eval_plain(x, bias, mean, var, gamma, beta, 1e-5, act)
+    mul = torch.rsqrt(var + 1e-5) * gamma
+    before = bn.bn_act_eval.launches
+    out = bn.bn_act_eval_fused(x, bias, mean, mul, beta, act,
+                               out=torch.empty_like(x))
+    inplace = x.clone()
+    got = bn.bn_act_eval_fused(inplace, bias, mean, mul, beta, act)
+    torch.cuda.synchronize()
+    assert got is inplace and bn.bn_act_eval.launches == before + 2
+    for a in (out, got):
+        if act == "gelu":
+            assert _ulps(a, ref) <= 2
+        else:
+            assert torch.equal(a, ref)
+
+
+@pytest.mark.cuda
+def test_eval_epilogue_rejects_what_it_cannot_take(cuda):
+    x, bias, mean, var, gamma, beta = _eval_operands(4, 3, 8, True, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        bn.bn_act_eval_fused(x.double(), bias, mean, gamma, beta)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn.bn_act_eval_fused(x.transpose(0, 1), bias, mean, gamma, beta)
+    with pytest.raises(ValueError, match="shape"):
+        bn.bn_act_eval_fused(x, bias[:2], mean, gamma, beta)
+    with pytest.raises(ValueError, match="unknown activation"):
+        bn.bn_act_eval_fused(x, bias, mean, gamma, beta, "relu")
+    # the wrapper launches or raises on a CUDA tensor: no plain fallback
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn.bn_act_eval(strided, bias, mean, var, gamma, beta)
+    with pytest.raises(TypeError, match="float32"):
+        bn.bn_act_eval(x.double(), bias, mean, var, gamma, beta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,rows", [((16, 32, 288), 3),
+                                        ((16, 32, 288), 5),
+                                        ((9, 3, 10), 2), ((9, 5, 7), 4)],
+                         ids=str)
+def test_eval_epilogue_slices_what_one_launch_cannot_index(
+        cuda, monkeypatch, shape, rows):
+    """With ``K9_MAX_ELEMENTS`` patched to ``rows`` rows and a bit, a batch
+    runs as one launch a slice of whole rows (the last one short), with
+    one launch's bits, in the 16-, 8- and 4-byte vector builds."""
+    x, bias, mean, var, gamma, beta = _eval_operands(*shape, True, cuda)
+    ref = bn.bn_act_eval_plain(x, bias, mean, var, gamma, beta, 1e-5, "elu")
+    monkeypatch.setattr(bn, "K9_MAX_ELEMENTS", rows * shape[1] * shape[2]
+                        + 1)
+    before = bn.bn_act_eval.launches
+    got = bn.bn_act_eval(x.clone(), bias, mean, var, gamma, beta, 1e-5,
+                         "elu")
+    torch.cuda.synchronize()
+    assert bn.bn_act_eval.launches - before == -(-shape[0] // rows)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_eval_epilogue_past_two_to_the_31_elements(cuda):
+    """A batch of more than 2**31 elements (233,018 nuts spectra of 32 x
+    288) takes two launches and gives the eager chain's bits throughout."""
+    nb = 2**31 // (32 * 288) + 2
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(nb, 32, 288, device=cuda, generator=gen)
+    _, bias, mean, var, gamma, beta = _eval_operands(1, 32, 288, True, cuda)
+    mul = torch.rsqrt(var + 1e-5) * gamma
+    before = bn.bn_act_eval.launches
+    out = bn.bn_act_eval_fused(x, bias, mean, mul, beta, "elu",
+                               out=torch.empty_like(x))
+    assert bn.bn_act_eval.launches - before == 2
+    for b0 in range(0, nb, 16384):
+        ref = bn.bn_act_eval_plain(x[b0:b0 + 16384], bias, mean, var, gamma,
+                                   beta, 1e-5, "elu")
+        assert torch.equal(out[b0:b0 + 16384], ref), b0
+
+
+def _nuts_bundles(dev, n_classes, variant):
+    """``n_classes`` nuts-width VAEs (288 bands, latent 16, hidden 128)
+    with random weights and BatchNorm statistics, calibrated on 512
+    spectra each: (model, bundle, vaesimca model or None), stacked when
+    there is more than one class."""
+    from ocm_tpu_torch.models.bundle import (new_bundle, spectral_stats,
+                                             stack_bundles)
+
+    model = TV.ConvVAE1D(288, 16, hidden_fc=128)
+    bundles, fitted = [], []
+    for c in range(n_classes):
+        gen = torch.Generator().manual_seed(100 + c)
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        for k, v in sd.items():
+            if v.dtype != torch.float32:
+                continue
+            if k.endswith("running_var"):
+                sd[k] = torch.rand(v.shape, generator=gen) + 0.5
+            elif k.endswith("weight"):
+                sd[k] = v * (1.0 + 0.2 * torch.rand(v.shape, generator=gen))
+            else:
+                sd[k] = v + 0.2 * torch.randn(v.shape, generator=gen)
+        x_cal = torch.randn(512, 288, generator=gen).to(dev)
+        mean, std = spectral_stats(x_cal)
+        bundle = new_bundle({k: v.to(dev) for k, v in sd.items()}, mean, std,
+                            16)
+        if variant == "vaesimca":
+            fitted.append(vaesimca.fit_vaesimca(model, bundle, x_cal))
+        else:
+            bundle = vae_decision.fit_thresholds(model, bundle, x_cal)
+        bundles.append(bundle)
+    if n_classes == 1:
+        return model, bundles[0], fitted[0] if fitted else None
+    return (model, stack_bundles(bundles),
+            stack_bundles(fitted) if fitted else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,classes,epilogues", [
+    ("vaesimca", 1, 9), ("d2", 1, 3), ("d2", 5, 15)],
+    ids=["vaesimca", "d2", "stacked_d2"])
+def test_screens_on_the_eval_kernel_equal_the_plain_path(
+        cuda, monkeypatch, variant, classes, epilogues):
+    """A 16,384-spectrum screen at the nuts widths gives the same answers,
+    bit for bit, with every conv block's epilogue in K9 (counted: all of
+    them fused) as with the kernel turned away (all plain)."""
+    from ocm_tpu_torch.serving import VAEScorer
+    from ocm_tpu_torch.utils import profiling
+
+    model, bundle, vs = _nuts_bundles(cuda, classes, variant)
+    scorer = VAEScorer(model, bundle, variant=variant, chunk_size=16384,
+                       vaesimca_model=vs)
+    x = np.random.default_rng(3).standard_normal((16384, 288)).astype(
+        np.float32)
+    scorer.score(x)
+
+    def counted():
+        profiling.reset()
+        with profiling.tracing():
+            out = scorer.score(x)
+        torch.cuda.synchronize()
+        c = profiling.counters()
+        profiling.reset()
+        return out, (c.get("model.bn_act_eval_fused", 0),
+                     c.get("model.bn_act_eval_plain", 0))
+
+    before = bn.bn_act_eval.launches
+    fused, counts = counted()
+    assert counts == (epilogues, 0)
+    assert bn.bn_act_eval.launches == before + epilogues
+    monkeypatch.setattr(bn, "eval_kernel_applies", lambda *a: False)
+    plain, counts = counted()
+    assert counts == (0, epilogues)
+    assert fused.keys() == plain.keys()
+    for k in fused:
+        np.testing.assert_array_equal(fused[k], plain[k], err_msg=k)

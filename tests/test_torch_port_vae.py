@@ -15,13 +15,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from ocm_tpu.models import bundle as JBd
 from ocm_tpu.models import vae as JV
 from ocm_tpu.models.torch_export import numpy_state_dict_from_bundle
 from ocm_tpu_torch.models import bundle as TBd
 from ocm_tpu_torch.models import vae as TV
-from torch_port_data import VAE_ENTRY, VAE_SMALL, perturb_bn, vae_spectra
+from ocm_tpu_torch.utils import profiling
+from torch_port_data import (VAE_ENTRY, VAE_SMALL, eval_kernel_on_cpu,
+                             perturb_bn, vae_spectra)
 
 RTOL, ATOL = 1e-9, 1e-11
 DECISION_BUFFERS = {"threshold", "threshold_q", "threshold_h", "threshold_f",
@@ -238,3 +241,147 @@ def test_init_is_kaiming_normal_from_the_generator():
     wt = a.decoder_conv[0].weight                      # ConvTranspose1d(128, 64)
     assert abs(wt.std().item() * np.sqrt(64 * 9) - 1.0) < 0.03
     assert float(a.fc[0].bias.detach().abs().max()) == 0.0
+
+
+# --- the eval-mode conv blocks: conv, then bn_act_eval (K9 on the card) ------
+
+def _eval_model(length=48, act="elu", dtype=torch.float64, **kw):
+    """An eval-mode port model with random BatchNorm parameters and running
+    statistics (``perturb_bn``'s recipe), nothing requiring grad."""
+    model = TV.ConvVAE1D(**{**VAE_SMALL, "input_length": length, **kw},
+                         activation=act,
+                         generator=torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, TV.BatchNormAct):
+                c = mod.weight.shape[0]
+                mod.weight.uniform_(0.5, 1.5, generator=gen)
+                mod.bias.normal_(0, 0.3, generator=gen)
+                mod.running_mean.normal_(0, 0.3, generator=gen)
+                mod.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+            elif isinstance(mod, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)):
+                mod.bias.normal_(0, 0.3, generator=gen)
+    return model.to(dtype).eval().requires_grad_(False)
+
+
+def _module_chain(model, x):
+    """(mu, logvar, x_rec of mu) through the modules' own forwards: each
+    conv with its bias, then ``BatchNormAct`` (``bn_act_normalize``)."""
+    h = model.fc(model.encoder_conv(x.unsqueeze(1)).flatten(1))
+    mu, lv = model.fc_mu(h), model.fc_logvar(h)
+    h = model.fc_dec(mu).view(mu.shape[0], *model.enc_shape)
+    rec = model.decoder_conv(h).squeeze(1)
+    n = model.input_length
+    rec = rec[..., :n] if rec.shape[-1] > n else F.pad(rec, (0,
+                                                             n - rec.shape[-1]))
+    return mu, lv, rec
+
+
+def _new_path(model, x):
+    mu, lv = model.encode(x)
+    return mu, lv, model.decode(mu)
+
+
+def _eval_counts(fn):
+    profiling.reset()
+    with profiling.tracing():
+        out = fn()
+    c = profiling.counters()
+    profiling.reset()
+    return out, (c.get("model.bn_act_eval_fused", 0),
+                 c.get("model.bn_act_eval_plain", 0))
+
+
+@pytest.mark.parametrize("length", [48, 51], ids=["L48", "L51"])
+@pytest.mark.parametrize("act", ["elu", "gelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_eval_conv_blocks_equal_the_module_chain(dtype, act, length):
+    """encode and decode in eval mode give the bits of the modules' own
+    chain (biased conv, then ``bn_act_normalize``), through
+    ``bn_act_eval``'s plain twin on the CPU."""
+    model = _eval_model(length, act, dtype)
+    x = torch.randn(6, length, generator=torch.Generator().manual_seed(5),
+                    dtype=dtype)
+    got, counts = _eval_counts(lambda: _new_path(model, x))
+    for g, r in zip(got, _module_chain(model, x)):
+        assert torch.equal(g, r)
+    assert counts == (0, 2 * VAE_SMALL["conv_blocks"])
+
+
+def test_eval_fused_blocks_match_the_module_chain(monkeypatch):
+    """With the kernel pointed at the CPU (a stand-in in its operation
+    order), every eval conv block of an f32 model runs as the conv without
+    its bias and one kernel call; the convs' arguments (stride, padding,
+    output padding) are the modules'.  The CPU's convolution adds its bias
+    inside the sum, so the two agree to f32 rounding here (on the card,
+    where the bias is a pass of its own, to the bit)."""
+    eval_kernel_on_cpu(monkeypatch)
+    for length in (48, 51):
+        model = _eval_model(length, dtype=torch.float32)
+        x = torch.randn(6, length, generator=torch.Generator().manual_seed(7))
+        got, counts = _eval_counts(lambda: _new_path(model, x))
+        assert counts == (2 * VAE_SMALL["conv_blocks"], 0)
+        for g, r in zip(got, _module_chain(model, x)):
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+
+
+# fallback -> (model, input and context for a forward on the plain path)
+FALLBACKS = ["grad", "f64", "bf16_twin"]
+
+
+@pytest.mark.parametrize("case", FALLBACKS)
+def test_eval_fallbacks_take_the_plain_path(monkeypatch, case):
+    """Where the kernel cannot take a block (a graph to record, float64,
+    the bf16 twin's autocast), the block runs as the modules did before,
+    bit for bit, and counts ``model.bn_act_eval_plain``."""
+    from ocm_tpu_torch.serving import _Bf16Twin
+
+    eval_kernel_on_cpu(monkeypatch)
+    model = _eval_model(dtype=torch.float64 if case == "f64"
+                        else torch.float32)
+    x = torch.randn(6, 48, generator=torch.Generator().manual_seed(8),
+                    dtype=torch.float64 if case == "f64" else torch.float32)
+    if case == "grad":
+        model.requires_grad_(True)
+    if case == "bf16_twin":
+        model.bound_state = None
+        twin = _Bf16Twin(model)
+
+        def new():
+            mu, lv = twin.encode(x)
+            return mu, lv, twin.decode(mu)
+
+        def ref():
+            with torch.autocast("cpu", dtype=torch.bfloat16):
+                out = _module_chain(model, x)
+            return [o.to(x.dtype) for o in out]
+    else:
+        def new():
+            return _new_path(model, x)
+
+        def ref():
+            return _module_chain(model, x)
+    got, counts = _eval_counts(new)
+    assert counts == (0, 2 * VAE_SMALL["conv_blocks"])
+    for g, r in zip(got, ref()):
+        assert torch.equal(g, r)
+    assert all(g.requires_grad == (case == "grad") for g in got)
+
+
+@pytest.mark.parametrize("case", ["no_batchnorm", "train"])
+def test_eval_path_leaves_other_forwards_alone(monkeypatch, case):
+    """A model without BatchNorm, and training mode, run their modules as
+    they are: no eval epilogue, the same bits."""
+    eval_kernel_on_cpu(monkeypatch)
+    model = _eval_model(dtype=torch.float32,
+                        use_batchnorm=case != "no_batchnorm")
+    if case == "train":
+        model.train()
+    x = torch.randn(6, 48, generator=torch.Generator().manual_seed(9))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    got, counts = _eval_counts(lambda: _new_path(model, x))
+    model.load_state_dict(state)                 # training moved the stats
+    assert counts == (0, 0)
+    for g, r in zip(got, _module_chain(model, x)):
+        assert torch.equal(g, r)

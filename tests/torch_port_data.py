@@ -137,3 +137,27 @@ def perturb_bn(params, batch_stats, seed=5):
         stats[name] = {"mean": rng.normal(0, 0.3, c),
                        "var": rng.uniform(0.5, 1.5, c)}
     return params, stats
+
+
+class _AsIfOnCard:
+    """A tensor that says it is a CUDA tensor, and is otherwise itself."""
+    is_cuda = True
+
+    def __init__(self, x):
+        self._x = x
+
+    def __getattr__(self, name):
+        return getattr(self._x, name)
+
+
+def eval_kernel_on_cpu(monkeypatch):
+    """Have ``ops.bn.eval_kernel_applies`` (K9's choice) answer for a CPU
+    tensor as it answers for the same tensor on the card, so that a CPU
+    test sees which conv blocks the card would give the kernel; those then
+    run ``bn_act_eval``'s CPU twin, which computes the kernel's operations
+    in its order."""
+    from ocm_tpu_torch.ops import bn
+
+    applies = bn.eval_kernel_applies
+    monkeypatch.setattr(bn, "eval_kernel_applies",
+                        lambda x, *params: applies(_AsIfOnCard(x), *params))
