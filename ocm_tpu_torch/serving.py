@@ -6,7 +6,9 @@ bundle's device (``bundle.bind``, built once) and screens spectra in chunks
 of ``chunk_size``: each chunk is padded to that size by repeating its last
 row (so batch statistics -- variant 'f', quirk Q3 -- see the padded batch
 that ``ocm_tpu`` sees), copied to the device, decided under
-``torch.inference_mode()``, fetched, and cut back to its real rows.
+``torch.inference_mode()``, fetched, and cut back to its real rows (on a
+CUDA device from and to page-locked memory, the chunk's copy on a stream
+of its own: ``_ChunkedScorer``).
 The convolutions run with cuDNN's deterministic algorithms, which the
 package selects for the process when it loads (``ocm_tpu_torch``'s
 ``__init__``): with the card's default transposed convolutions a rerun of
@@ -36,6 +38,10 @@ statistics over the whole chunk.
 
 from __future__ import annotations
 
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from itertools import islice
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -69,18 +75,44 @@ def _pad_chunk(chunk: np.ndarray, size: int):
     return out, n
 
 
+def _padded(host: tuple, size: int, pin: bool = False) -> tuple:
+    """Each tensor of a host stage in a new (page-locked, with ``pin``)
+    buffer of ``size`` rows, its last row repeated below it: the stage of
+    a padded chunk, since every host stage works row by row."""
+    out = []
+    for t in host:
+        buf = torch.empty((size, *t.shape[1:]), dtype=t.dtype, pin_memory=pin)
+        buf[:t.shape[0]].copy_(t)
+        rest = buf[t.shape[0]:]
+        rest.copy_(t[-1:].expand(rest.shape))
+        out.append(buf)
+    return tuple(out)
+
+
 class _ChunkedScorer:
     """Shared machinery: fixed-size chunks, ragged tails padded.
 
-    A subclass's ``_prepare_chunk`` turns one padded numpy chunk (this
-    rank's rows of it, under a mesh) into the tuple of device tensors (of
-    any dtypes) that ``decide_fn(*tensors) -> {name: tensor}`` takes;
-    ``gathered_fn`` maps that dict over the whole chunk (gathered from the
-    ranks under a mesh) to the decisions; ``post_fn`` is a host epilogue on the fetched numpy
-    dict, applied before the pad rows are cut.
+    A subclass's ``host_chunk`` turns rows of a chunk (this rank's rows of
+    it, under a mesh) into the tuple of CPU tensors (of any dtypes) to be
+    put on the device, working row by row; ``decide_fn(*tensors) -> {name:
+    tensor}`` decides them on the device; ``gathered_fn`` maps that dict
+    over the whole chunk (gathered from the ranks under a mesh) to the
+    decisions; ``post_fn`` is a host epilogue on the fetched numpy dict,
+    applied before the pad rows are cut.
+
+    The algorithm is chosen by the device, once.  On the CPU a chunk is
+    padded, staged and decided as it is, and its outputs read in place.  On
+    a CUDA device a chunk's host stage is padded into page-locked buffers
+    (torch's caching host allocator: the first calls pin them, later ones
+    reuse them), copied to the device on the scorer's own copy stream, and
+    waited for there before the chunk is handed on, so that the copy
+    overlaps the decisions already on the device and the decide's kernels
+    are enqueued after it; each chunk's outputs are copied into page-locked
+    host tensors behind one event, read after the next chunk's decide is
+    enqueued.
     """
 
-    def __init__(self, decide_fn, chunk_size: int = 8192, mesh=None,
+    def __init__(self, decide_fn, device, chunk_size: int = 8192, mesh=None,
                  post_fn=None, gathered_fn=None):
         self.chunk_size = int(chunk_size)
         if mesh is not None:
@@ -91,19 +123,83 @@ class _ChunkedScorer:
             mesh.rows(self.chunk_size, DATA_AXIS)   # chunk_size must divide
         self._mesh = mesh
         self._fn, self._post, self._gathered = decide_fn, post_fn, gathered_fn
+        self._device = torch.device(device)
+        self._copy_stream = (torch.cuda.Stream(self._device)
+                             if self._device.type == "cuda" else None)
+        self._worker: ThreadPoolExecutor | None = None
+        self._worker_lock = threading.Lock()
 
-    def _fetch(self, res, n: int) -> dict:
+    def host_chunk(self, chunk: np.ndarray) -> tuple:
+        raise NotImplementedError
+
+    def to_device(self, host: tuple) -> tuple:
+        """The copy stage: ``host_chunk``'s tensors on the models' device
+        (from pageable memory, on the current stream)."""
+        return tuple(t.to(self._device) for t in host)
+
+    def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
+        """One padded chunk (this rank's rows of it) staged and copied
+        from pageable memory: the path off CUDA."""
+        return self.to_device(self.host_chunk(chunk))
+
+    def close(self) -> None:
+        """Stop the copy worker's thread now (freeing the scorer stops it
+        too); a later call with ``prefetch`` starts it again."""
+        with self._worker_lock:
+            worker, self._worker = self._worker, None
+        if worker is not None:
+            worker.shutdown()
+
+    def _copy_worker(self) -> ThreadPoolExecutor:
+        """The scorer's copy worker: one thread fed by a queue, started
+        once; it holds no reference to the scorer, and ends when the
+        scorer (the executor's only owner) is freed."""
+        with self._worker_lock:
+            if self._worker is None:
+                self._worker = ThreadPoolExecutor(
+                    1, thread_name_prefix="ocm-serving-copy")
+            return self._worker
+
+    def _rows(self, x, start: int):
+        """The rows of the chunk at ``start`` that this rank stages (all
+        of it without a mesh) before padding, the rows they pad to, and
+        the chunk's real rows.  Rows past the real ones repeat the last."""
+        n = min(self.chunk_size, x.shape[0] - start)
+        lo, hi = 0, self.chunk_size
+        if self._mesh is not None:
+            own = self._mesh.rows(self.chunk_size, "data")
+            lo, hi = own.start, own.stop
+        first = min(lo, n - 1)
+        return x[start + first:start + max(min(hi, n), first + 1)], hi - lo, n
+
+    def _send(self, res: dict):
+        """Start a chunk's outputs towards the host: on a CUDA device each
+        into page-locked memory on the current stream, behind one event."""
+        if self._copy_stream is None:
+            return res
+        host = {k: v.to("cpu", non_blocking=True) for k, v in res.items()}
+        return host, torch.cuda.current_stream(self._device).record_event()
+
+    def _fetch(self, sent, n: int) -> dict:
         with profiling.span("serving.fetch"):
-            out = {k: v.cpu().numpy() for k, v in res.items()}
+            if self._copy_stream is None:
+                out = {k: v.cpu().numpy() for k, v in sent.items()}
+            else:
+                host, done = sent
+                done.synchronize()
+                out = {k: v.numpy() for k, v in host.items()}
             if self._post is not None:
                 out = self._post(out)
             return {k: a[:n] for k, a in out.items()}
 
-    def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
-        raise NotImplementedError
-
     def _decide(self, *args):
         with profiling.span("serving.decide"), torch.inference_mode():
+            if self._copy_stream is not None:
+                # staged on the copy stream: its memory is not reused
+                # before the kernels enqueued here have read it
+                stream = torch.cuda.current_stream(self._device)
+                for t in args:
+                    t.record_stream(stream)
             out = self._fn(*args)
             if self._mesh is not None:
                 out = {k: self._mesh.all_gather(v, "data", k)
@@ -112,15 +208,41 @@ class _ChunkedScorer:
 
     def _prep(self, x, start, parent=None):
         """One chunk padded and on the device; ``parent``: the caller's
-        ``serving.score`` span where this runs on the prefetch worker."""
+        ``serving.score`` span where this runs on the copy worker."""
         with profiling.span("serving.input", parent):
-            chunk, n = _pad_chunk(x[start:start + self.chunk_size],
-                                  self.chunk_size)
-            if self._mesh is not None:
-                chunk = chunk[self._mesh.rows(self.chunk_size, "data")]
-            args = self._prepare_chunk(chunk)
+            if self._copy_stream is None:
+                chunk, n = _pad_chunk(x[start:start + self.chunk_size],
+                                      self.chunk_size)
+                if self._mesh is not None:
+                    chunk = chunk[self._mesh.rows(self.chunk_size, "data")]
+                args = self._prepare_chunk(chunk)
+            else:
+                rows, size, n = self._rows(x, start)
+                staged = _padded(self.host_chunk(rows), size, pin=True)
+                with torch.cuda.stream(self._copy_stream):
+                    args = tuple(t.to(self._device, non_blocking=True)
+                                 for t in staged)
+                    done = self._copy_stream.record_event()
+                # the span holds its copy, the decide's kernels follow it
+                done.synchronize()
+                profiling.count("serving.h2d_bytes_pinned",
+                                sum(t.nbytes for t in args))
             profiling.count("serving.h2d_bytes", sum(t.nbytes for t in args))
             return args, n
+
+    def _drain(self, chunks) -> dict:
+        """Decide each (device tensors, real rows) of ``chunks``; a chunk's
+        outputs are read after the next chunk's decide is enqueued."""
+        outs, last = [], None
+        for args, n in chunks:
+            sent = self._send(self._decide(*args)), n
+            del args        # not held on the device through the wait below
+            if last is not None:
+                outs.append(self._fetch(*last))
+            last = sent
+        if last is not None:
+            outs.append(self._fetch(*last))
+        return _concat(outs)
 
     def prepare(self, x) -> list:
         """Ingest once, score many: pad and place every chunk on the device
@@ -134,56 +256,53 @@ class _ChunkedScorer:
 
     def score_prepared(self, prepared: list) -> dict:
         with profiling.span("serving.score"):
-            return _concat([self._fetch(self._decide(*args), n)
-                            for args, n in prepared])
+            return self._drain(prepared)
 
     def score(self, x, prefetch: int = 1) -> dict:
         """Score an (N, L) array in fixed-size chunks; returns a dict of
-        numpy arrays ('accept' plus the variant's statistics).
+        numpy arrays ('accept' plus the variant's statistics), which share
+        no memory with the scorer's buffers.
 
         Device residency stays O((2 + prefetch) * chunk_size).  With
-        ``prefetch`` > 0 a worker thread pads and copies the next chunks
-        to the device while the current one is decided (kernels are
-        enqueued asynchronously; the fetch waits); 0 runs sequentially.
-        A single chunk never starts the worker.
+        ``prefetch`` > 0 the scorer's copy worker (one resident thread,
+        started at the first such call) stages the next chunks and copies
+        them to the device while the current one is decided; 0 stages each
+        chunk on the calling thread after the previous one's decide is
+        enqueued.  A single chunk never uses the worker.  Calls from
+        several threads share the worker and each get their own answers.
 
         While tracing is on (``utils.profiling``), the call records the
-        spans ``serving.score``, and per chunk ``serving.input``,
-        ``serving.wait_input`` (with a worker), ``serving.decide`` and
-        ``serving.fetch``, and counts ``serving.h2d_bytes``: the worker
-        records exactly when its caller does.
+        spans ``serving.score``, and per chunk ``serving.input`` (host
+        stage and copy), ``serving.wait_input`` (with the worker),
+        ``serving.decide`` and ``serving.fetch``, and counts
+        ``serving.h2d_bytes`` (and on a CUDA device
+        ``serving.h2d_bytes_pinned``, the bytes copied from page-locked
+        memory): the worker records exactly when its caller does.
         """
         with profiling.span("serving.score") as call:
-            # the call's locals (pool, futures, chunks) are freed when
-            # _score returns, inside the span
+            # the call's locals (futures, chunks) are freed when _score
+            # returns, inside the span
             return self._score(x, prefetch, call)
 
     def _score(self, x, prefetch: int, call) -> dict:
         x = np.asarray(x)
-        starts = list(range(0, x.shape[0], self.chunk_size))
-        outs: list = []
+        starts = range(0, x.shape[0], self.chunk_size)
         if prefetch <= 0 or len(starts) <= 1:
-            for start in starts:
-                args, n = self._prep(x, start)
-                outs.append(self._fetch(self._decide(*args), n))
-            return _concat(outs)
-        from collections import deque
-        from concurrent.futures import ThreadPoolExecutor
+            return self._drain(self._prep(x, s) for s in starts)
+        submit = self._copy_worker().submit
+        rest = iter(starts)
+        pending = deque(submit(self._prep, x, s, call)
+                        for s in islice(rest, 1 + prefetch))
 
-        with ThreadPoolExecutor(max_workers=1) as ex:
-            it = iter(starts)
-            # range first: zip(it, range) would drop one start from it
-            pending = deque(ex.submit(self._prep, x, s, call) for _, s in
-                            zip(range(1 + prefetch), it))
+        def inputs():
             while pending:
                 with profiling.span("serving.wait_input"):
-                    args, n = pending.popleft().result()
-                res = self._decide(*args)
-                nxt = next(it, None)
-                if nxt is not None:
-                    pending.append(ex.submit(self._prep, x, nxt, call))
-                outs.append(self._fetch(res, n))
-        return _concat(outs)
+                    got = pending.popleft().result()
+                for s in islice(rest, 1):
+                    pending.append(submit(self._prep, x, s, call))
+                yield got
+
+        return self._drain(inputs())
 
     def score_stream(self, chunks: Iterable) -> Iterator[dict]:
         """One result dict per array of an iterable (e.g. camera frames)."""
@@ -269,10 +388,9 @@ class SIMCAScorer(_ChunkedScorer):
                       if self._multiclass else _host_f32(model.mean))
         self._center, self._store_dtype = center, store_dtype
         self._raw_fn = preprocess_fn
-        self._device = model.mean.device
         models = model if self._multiclass else _stack1(model)
         offset = None if center is None else torch.as_tensor(
-            center, dtype=model.mean.dtype, device=self._device)
+            center, dtype=model.mean.dtype, device=model.mean.device)
 
         if store_dtype == torch.int8:
             def scores(xq, xs, x2):
@@ -294,7 +412,7 @@ class SIMCAScorer(_ChunkedScorer):
             return {k: v.T if self._multiclass else v[0]
                     for k, v in out.items()}
 
-        super().__init__(decide, chunk_size, mesh)
+        super().__init__(decide, model.mean.device, chunk_size, mesh)
 
     @property
     def center(self):
@@ -303,8 +421,8 @@ class SIMCAScorer(_ChunkedScorer):
         return self._center
 
     def host_chunk(self, chunk: np.ndarray) -> tuple:
-        """The host stage of one padded chunk: the CPU tensors that go to
-        the device (raw: the chunk at its storage dtype; f32/bf16: the
+        """The host stage of rows of a chunk: the CPU tensors that go to
+        the device (raw: the rows at their storage dtype; f32/bf16: the
         centered residual, bf16 cast on the host; int8: quantized rows,
         scales and row norms)."""
         if self._raw_fn is not None:          # raw: the storage dtype as is
@@ -321,13 +439,6 @@ class SIMCAScorer(_ChunkedScorer):
         if self._store_dtype == torch.bfloat16:
             t = t.to(torch.bfloat16)          # on the host: 2 B to ship
         return (t,)
-
-    def to_device(self, host: tuple) -> tuple:
-        """The copy stage: ``host_chunk``'s tensors on the models' device."""
-        return tuple(t.to(self._device) for t in host)
-
-    def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
-        return self.to_device(self.host_chunk(chunk))
 
 
 class _Bf16Twin(torch.nn.Module):
@@ -508,14 +619,14 @@ class VAEScorer(_ChunkedScorer):
                 return {k: torch.stack([o[k] for o in outs], 1)
                         for k in outs[0]}
 
-        self._device, self._dtype = (bundle.spec_mean.device,
-                                     bundle.spec_mean.dtype)
-        super().__init__(decide, chunk_size, mesh, post_fn=post,
-                         gathered_fn=gathered)
+        self._dtype = bundle.spec_mean.dtype
+        super().__init__(decide, bundle.spec_mean.device, chunk_size, mesh,
+                         post_fn=post, gathered_fn=gathered)
 
-    def _prepare_chunk(self, chunk: np.ndarray) -> tuple:
-        return (torch.as_tensor(chunk, dtype=self._dtype,
-                                device=self._device),)
+    def host_chunk(self, chunk: np.ndarray) -> tuple:
+        """The host stage of rows of a chunk: the rows in the bundle's
+        dtype (a view where they have it)."""
+        return (torch.as_tensor(chunk, dtype=self._dtype),)
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, model: ConvVAE1D, device=None,

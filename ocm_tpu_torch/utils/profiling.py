@@ -25,12 +25,15 @@
   ``serving``'s scorers record, per call of ``score`` or
   ``score_prepared``: ``serving.score`` (the call), and per chunk
   ``serving.input`` (pad, host stage and copy to the device, on the
-  prefetch worker where there is one), ``serving.wait_input`` (the caller
-  waiting for the worker), ``serving.decide`` (the enqueue under
-  ``inference_mode``) and ``serving.fetch`` (device to host, the host
-  epilogue, the cut); ``prepare`` records ``serving.prepare`` and its
-  chunks' ``serving.input``; the counter ``serving.h2d_bytes`` counts the
-  bytes put on the device;
+  scorer's copy worker where it has one; on a card the staging into
+  page-locked memory and the copy's wait), ``serving.wait_input`` (the
+  caller waiting for the worker), ``serving.decide`` (the enqueue under
+  ``inference_mode``) and ``serving.fetch`` (waiting for the outputs on
+  the host, the host epilogue, the cut); ``prepare`` records
+  ``serving.prepare`` and its chunks' ``serving.input``; the counter
+  ``serving.h2d_bytes`` counts the bytes put on the device, and
+  ``serving.h2d_bytes_pinned`` those of them copied from page-locked
+  memory;
 - ``timeit`` — wall-clock timing that synchronizes every device its
   outputs lie on, so asynchronous launches cannot fake speed, after a
   warm-up that excludes first-call costs (kernel builds, allocator growth);
